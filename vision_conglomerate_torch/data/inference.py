@@ -1,0 +1,59 @@
+"""Inference datasets for images, as in the JAX package's data/inference.py.
+
+Each item is (resized float image, original uint8 image), both HWC. The
+resize is plain bilinear with no letterboxing and no kept aspect ratio.
+Video datasets are not in the port yet (ROADMAP §A.9).
+"""
+import glob
+import os
+from typing import Sequence, Tuple
+
+import cv2
+import numpy as np
+
+from ..utils.image import load_rgb_image
+
+
+def resize_bilinear(img_f32: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an HWC float image to (w, h), half-pixel centres
+    (torch's align_corners=False)."""
+    return cv2.resize(img_f32, tuple(wh), interpolation=cv2.INTER_LINEAR)
+
+
+class SingleImgSample:
+    """One image."""
+
+    def __init__(self, img_path: str, img_wh: Tuple[int, int]):
+        self.img_wh = img_wh
+        self.og_img = load_rgb_image(img_path)
+        self.img = resize_bilinear((self.og_img / 255.0).astype(np.float32), img_wh)
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx: int):
+        if idx >= 1:
+            raise IndexError(idx)
+        return self.img, self.og_img
+
+
+class InferenceImgDataset:
+    """Every image with one of `img_exts` under a directory, recursively,
+    in sorted path order."""
+
+    def __init__(self, img_dir: str, img_exts: Sequence[str] = ("png", "jpg", "jpeg"),
+                 img_wh: Tuple[int, int] = (640, 640)):
+        self.img_wh = img_wh
+        files = []
+        for ext in img_exts:
+            files += glob.glob(os.path.join(img_dir, "**", f"*.{ext}"), recursive=True)
+        self.img_files = sorted(set(files))
+        if not self.img_files:
+            raise FileNotFoundError(f"no {list(img_exts)} files under {img_dir}")
+
+    def __len__(self):
+        return len(self.img_files)
+
+    def __getitem__(self, idx: int):
+        og = load_rgb_image(self.img_files[idx])
+        return resize_bilinear((og / 255.0).astype(np.float32), self.img_wh), og

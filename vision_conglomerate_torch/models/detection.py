@@ -1,0 +1,124 @@
+"""DetectionNet and its per-scale decode, the JAX package's
+models/detection.py in PyTorch.
+
+The input is an NCHW image batch (an NHWC batch permuted to NCHW is
+already channels_last). The outputs keep the JAX layout: per scale
+(N, ny, nx, na, 1 + C + 4) when `inference=False`, and the flattened,
+decoded (N, M, 5 + C) when `inference=True`.
+
+Quirks kept from the JAX package:
+- the stride vector is [h/ny, w/nx] and multiplies (x, y) in that order;
+- the og-size rescale fires only when BOTH dims differ;
+- decode runs in f32 even when the network runs in bf16.
+Anchors are parameters (`{sm,md,lg}_anchors`), so they ride in checkpoints.
+"""
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from .. import registry
+from ..nn.blocks import cast_conv_weights
+
+ZERO_ANCHORS = {
+    "sm": ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0)),
+    "md": ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0)),
+    "lg": ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0)),
+}
+
+
+def make_2dgrid(nx: int, ny: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(1, ny, nx, 1, 2) grid of (x, y) cell indices."""
+    yg, xg = torch.meshgrid(torch.arange(ny, device=device), torch.arange(nx, device=device),
+                            indexing="ij")
+    return torch.stack([xg, yg], dim=2).reshape(1, ny, nx, 1, 2).to(dtype)
+
+
+def decode_scale(scale_pred: torch.Tensor, anchors: torch.Tensor, input_shape: Tuple[int, int],
+                 num_classes: int, inference: bool = False) -> torch.Tensor:
+    """Per-scale decode of (B, ny, nx, na, 1 + C + 4); anchors (na, 2) in 0-1.
+
+    Train: xy = sig*2 - 0.5 (cell units), wh = (sig*2)^2 (anchor-relative).
+    Inference: xy and wh in input pixels.
+    """
+    _, ny, nx, _, _ = scale_pred.shape
+    if inference:
+        scale_pred = scale_pred.float()
+    bbox_i = num_classes + 1
+    xy = torch.sigmoid(scale_pred[..., bbox_i:bbox_i + 2]) * 2.0 - 0.5
+    wh = torch.square(torch.sigmoid(scale_pred[..., bbox_i + 2:bbox_i + 4]) * 2.0)
+    if inference:
+        dtype, dev = scale_pred.dtype, scale_pred.device
+        stride = torch.tensor([input_shape[0] / ny, input_shape[1] / nx], dtype=dtype, device=dev)
+        xy = (xy + make_2dgrid(nx, ny, dtype, dev)) * stride
+        wh = wh * anchors.to(dtype) * torch.tensor([nx, ny], dtype=dtype, device=dev) * stride
+    return torch.cat([scale_pred[..., :bbox_i], xy, wh], dim=-1)
+
+
+def rescale_preds_to_size(pred: torch.Tensor, from_wh: Tuple[int, int], to_wh: Tuple[int, int],
+                          num_classes: int) -> torch.Tensor:
+    """Rescale decoded xywh boxes from one image size to another."""
+    box_i = 1 + num_classes
+    _from = torch.tensor([from_wh[0], from_wh[1]] * 2, dtype=pred.dtype, device=pred.device)
+    _to = torch.tensor([to_wh[0], to_wh[1]] * 2, dtype=pred.dtype, device=pred.device)
+    boxes = pred[..., box_i:box_i + 4] / _from * _to
+    return torch.cat([pred[..., :box_i], boxes, pred[..., box_i + 4:]], dim=-1)
+
+
+class DetectionNet(nn.Module):
+    """Backbone + neck + 3 decoupled heads + per-scale decode.
+
+    `config` is the `model_config` dict; its backbone, neck and head names
+    resolve through `registry`. `deploy=True` builds fused RepVGG blocks and
+    `folded=True` BN-folded convs (the serve form; weights from
+    `nn.reparam.deploy_transform`). Conv weights are kept in `dtype` and
+    channels_last, everything else in f32.
+    """
+
+    def __init__(self, num_classes: int, config: Dict[str, Any],
+                 anchors: Optional[Dict[str, Any]] = None, num_keypoints: Optional[int] = None,
+                 deploy: bool = False, folded: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        if num_keypoints:
+            raise NotImplementedError(
+                "the keypoint branch is not in the port yet (ROADMAP §A.13)")
+        self.num_classes = num_classes
+        self.dtype = dtype
+        anchors = anchors or ZERO_ANCHORS
+        self.num_anchors = len(anchors["sm"])
+        for k in ("sm", "md", "lg"):
+            setattr(self, f"{k}_anchors", nn.Parameter(
+                torch.tensor(anchors[k], dtype=torch.float32, device=device), requires_grad=False))
+
+        bb_spec = registry.resolve(registry.BACKBONES, config["backbone"])
+        bb_cfg = registry.component_config(config, config["backbone"])
+        neck_spec = registry.resolve(registry.NECKS, config["neck"])
+        neck_cfg = registry.component_config(config, config["neck"])
+        head_spec = registry.resolve(registry.HEADS, config["head"])
+        head_cfg = registry.component_config(config, config["head"])
+        kw = dict(folded=folded, device=device)
+        self.backbone = bb_spec.cls(3, **bb_cfg, **kw)
+        bb_out = bb_spec.out_channels(**bb_cfg)
+        self.neck = neck_spec.cls(bb_out, **neck_cfg, deploy=deploy, **kw)
+        neck_out = neck_spec.out_channels(bb_out, **neck_cfg)
+        self.head = nn.ModuleList([
+            head_spec.cls(c, num_classes, num_anchors=self.num_anchors, **head_cfg, **kw)
+            for c in neck_out[1:]])
+        cast_conv_weights(self, dtype)
+
+    def forward(self, x: torch.Tensor, inference: bool = False,
+                og_size: Optional[Tuple[int, int]] = None):
+        x = x.to(self.dtype)
+        _, n3, n4, n5 = self.neck(self.backbone(x))
+        heads_out = [head(fm) for head, fm in zip(self.head, (n3, n4, n5))]
+        input_shape = (x.shape[2], x.shape[3])
+        anchors = (self.sm_anchors, self.md_anchors, self.lg_anchors)
+        preds = [decode_scale(p, a, input_shape, self.num_classes, inference)
+                 for p, a in zip(heads_out, anchors)]
+        if not inference:
+            return tuple(preds)
+        if og_size is not None and og_size[0] != x.shape[2] and og_size[1] != x.shape[3]:
+            from_wh, to_wh = (x.shape[3], x.shape[2]), (og_size[1], og_size[0])
+            preds = [rescale_preds_to_size(p, from_wh, to_wh, self.num_classes) for p in preds]
+        return torch.cat([p.reshape(x.shape[0], -1, self.num_classes + 5) for p in preds], dim=1)

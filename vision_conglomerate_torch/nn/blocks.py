@@ -1,0 +1,390 @@
+"""Convolutional blocks of the detection main path, in PyTorch.
+
+The JAX package's nn/blocks.py (flax, NHWC) ported to nn.Modules that keep
+NCHW parameters and run on channels_last activations. Attribute names
+mirror the upstream torch modules, so the JAX package's
+`tools/torch_port.convert_torch_state_dict` maps a port `state_dict` onto
+the flax tree (`bottlenecks.0` <-> `bottlenecks_0`, `norm` <-> `norm/BatchNorm_0`).
+
+Deploy form. `folded=True` builds a ConvBNorm whose BatchNorm has been
+folded into the conv (`nn.reparam.fold_conv_bn_params`): the conv always
+has a bias and there is no `norm`. `deploy=True` builds a RepVGGBlock as a
+single fused 3x3 `conv_reparam` (`nn.reparam.reparameterize_params`). In
+that form the stride-1 convs run on the port's CUDA kernels when their
+input lies on the card: every folded 1x1 conv on `ops.fused_matmul`, every
+folded stride-1 3x3 conv and every `conv_reparam` on `ops.conv3x3`. The
+6x6/s2 stem, the 3x3/s2 downsamples, pooling, resizes and the head's plain
+1x1 layers stay on PyTorch ops.
+
+Numerics follow the JAX package: BatchNorm computes in f32 (momentum 0.1,
+eps 1e-5); conv weights may be cast to a compute dtype
+(`cast_conv_weights`) while biases and BatchNorm stay f32; the kernels apply
+bias and activation to their f32 accumulator.
+"""
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv3x3 import conv3x3_bias_act
+from ..ops.fused_matmul import ACTIVATIONS, apply_activation, pointwise_conv_act
+from ..ops.resize import resize_nchw
+
+IntPair = Union[int, Tuple[int, int]]
+
+
+def _pair(v: IntPair) -> Tuple[int, int]:
+    if isinstance(v, int):
+        return (v, v)
+    return (int(v[0]), int(v[1]))
+
+
+def channels8(x: Optional[float], width_multiple: float, divisor: int = 8) -> Optional[int]:
+    """Channel width rule ceil(x*wm/8)*8; None passes through."""
+    if not x:
+        return x
+    return int(math.ceil((x * width_multiple) / divisor) * divisor)
+
+
+def depth_round(x: float, depth_multiple: float) -> int:
+    """Depth rule max(round(x*dm), 1)."""
+    return max(round(x * depth_multiple), 1)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """`conv` on x in x's dtype (the bias may be kept in f32)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight, bias, conv.stride, conv.padding)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) contiguous view of an NCHW tensor; free when x is
+    channels_last."""
+    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def kernel_route(conv: nn.Conv2d, activation: Optional[str]) -> Optional[str]:
+    """Which CUDA kernel computes act(conv(x) + b): "matmul" for 1x1/s1/p0,
+    "conv3x3" for 3x3/s1/p1, None for every other conv."""
+    if activation not in ACTIVATIONS or conv.stride != (1, 1) or conv.groups != 1:
+        return None
+    if conv.kernel_size == (1, 1) and conv.padding == (0, 0):
+        return "matmul"
+    if conv.kernel_size == (3, 3) and conv.padding == (1, 1):
+        return "conv3x3"
+    return None
+
+
+def conv_bias_act(x: torch.Tensor, conv: nn.Conv2d, activation: Optional[str]) -> torch.Tensor:
+    """act(conv(x) + b) for a conv with a bias: on the matmul or conv3x3
+    kernel where `kernel_route` names one, else F.conv2d then the
+    activation in x's dtype."""
+    route = kernel_route(conv, activation)
+    if route is None:
+        return apply_activation(conv2d(x, conv), activation)
+    w_hwio = conv.weight.permute(2, 3, 1, 0)
+    fn = pointwise_conv_act if route == "matmul" else conv3x3_bias_act
+    return fn(_nhwc(x), w_hwio, conv.bias, activation).permute(0, 3, 1, 2)
+
+
+class ConvBNorm(nn.Module):
+    """Conv2d + BatchNorm (f32) + activation; `folded=True` is the deploy
+    form, whose conv carries the folded BatchNorm and always has a bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
+                 stride: IntPair = 1, padding: Optional[IntPair] = None,
+                 activation: Optional[str] = "silu", use_bias: bool = True,
+                 folded: bool = False, device=None):
+        super().__init__()
+        k = _pair(kernel_size)
+        p = (k[0] // 2, k[1] // 2) if padding is None else _pair(padding)
+        self.activation = activation
+        self.folded = folded
+        self.conv = nn.Conv2d(in_channels, out_channels, k, _pair(stride), p,
+                              bias=use_bias or folded, device=device)
+        if not folded:
+            self.norm = nn.BatchNorm2d(out_channels, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded:
+            return conv_bias_act(x, self.conv, self.activation)
+        y = apply_activation(self.norm(conv2d(x, self.conv).float()), self.activation)
+        return y.to(x.dtype)
+
+
+class RepVGGBlock(nn.Module):
+    """RepVGG block (stride 1): 3x3 conv-BN + 1x1 conv-BN (+ identity BN
+    when in == out), summed, then SiLU.
+
+    `branch_activation="silu"` keeps the upstream branches (conv -> BN ->
+    SiLU), which cannot fuse; they deploy by BN folding (`folded=True`).
+    `branch_activation=None` is the canonical block, which `deploy=True`
+    runs as one fused 3x3 `conv_reparam`.
+    """
+
+    activation = "silu"
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 branch_activation: Optional[str] = "silu", deploy: bool = False,
+                 folded: bool = False, device=None):
+        super().__init__()
+        self.deploy = deploy
+        if deploy:
+            if branch_activation is not None:
+                raise ValueError(
+                    "deploy=True (single fused conv) requires branch_activation=None "
+                    "(canonical RepVGG); branch-activated blocks deploy via BN folding")
+            self.conv_reparam = nn.Conv2d(in_channels, out_channels, 3, 1, 1, bias=True,
+                                          device=device)
+            return
+        self.conv3x3 = ConvBNorm(in_channels, out_channels, 3, 1, 1, use_bias=False,
+                                 activation=branch_activation, folded=folded, device=device)
+        self.conv1x1 = ConvBNorm(in_channels, out_channels, 1, 1, 0, use_bias=False,
+                                 activation=branch_activation, folded=folded, device=device)
+        if in_channels == out_channels:
+            self.identity = nn.BatchNorm2d(in_channels, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deploy:
+            return conv_bias_act(x, self.conv_reparam, self.activation)
+        out = self.conv3x3(x) + self.conv1x1(x)
+        if hasattr(self, "identity"):
+            out = out + self.identity(x.float()).to(x.dtype)
+        return apply_activation(out, self.activation)
+
+
+class RepBlock(nn.Module):
+    """Stack of n RepVGG blocks with hidden width e*out."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1, e: float = 0.5,
+                 branch_activation: Optional[str] = "silu", deploy: bool = False,
+                 folded: bool = False, device=None):
+        super().__init__()
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got n={n}")
+        c_h = int(out_channels * e)
+
+        def mk(ci, co):
+            return RepVGGBlock(ci, co, branch_activation=branch_activation,
+                               deploy=deploy, folded=folded, device=device)
+
+        if n == 1:
+            self.conv1 = mk(in_channels, out_channels)
+            self.blocks = nn.Sequential()
+        else:
+            self.conv1 = mk(in_channels, c_h)
+            self.blocks = nn.Sequential(*[mk(c_h, c_h) for _ in range(n - 2)],
+                                        mk(c_h, out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blocks(self.conv1(x))
+
+
+def bic_out_channels(bic_with_conv: bool, c1: int, c0: int, p2: int,
+                     out_channels: Optional[int]) -> int:
+    if bic_with_conv:
+        if out_channels is None:
+            raise ValueError("BiCwithConvModule needs out_channels")
+        return out_channels
+    return out_channels if out_channels else (c1 + c0 + p2)
+
+
+class BiCwithConvModule(nn.Module):
+    """Bi-directional concatenation with 1x1 convs."""
+
+    def __init__(self, c1: int, c0: int, p2: int, out_channels: int, e: float = 0.5,
+                 upsample_mode: str = "nearest", folded: bool = False, device=None):
+        super().__init__()
+        c_h = int(out_channels * e)
+        self.upsample_mode = upsample_mode
+        self.conv_c1 = ConvBNorm(c1, c_h, 1, folded=folded, device=device)
+        self.conv_c0 = ConvBNorm(c0, c_h, 1, folded=folded, device=device)
+        self.conv_out = ConvBNorm(2 * c_h + p2, out_channels, 1, folded=folded, device=device)
+
+    def forward(self, c1, c0, p2):
+        c1 = self.conv_c1(c1)
+        c0 = resize_nchw(self.conv_c0(c0), 0.5, self.upsample_mode)
+        p2 = resize_nchw(p2, 2.0, self.upsample_mode)
+        return self.conv_out(torch.cat([c1, c0, p2], dim=1))
+
+
+class BiCwithNoConvModule(nn.Module):
+    """Bi-directional concatenation, optional trailing 1x1 conv
+    (out_channels=None: pure concat)."""
+
+    def __init__(self, c1: int, c0: int, p2: int, out_channels: Optional[int] = None,
+                 upsample_mode: str = "nearest", folded: bool = False, device=None):
+        super().__init__()
+        self.upsample_mode = upsample_mode
+        if out_channels:
+            self.conv = ConvBNorm(c1 + c0 + p2, out_channels, 1, folded=folded, device=device)
+
+    def forward(self, c1, c0, p2):
+        c0 = resize_nchw(c0, 0.5, self.upsample_mode)
+        p2 = resize_nchw(p2, 2.0, self.upsample_mode)
+        out = torch.cat([c1, c0, p2], dim=1)
+        if hasattr(self, "conv"):
+            out = self.conv(out)
+        return out
+
+
+class BottleNeckModule(nn.Module):
+    """1x1 -> 3x3 bottleneck with optional shortcut."""
+
+    def __init__(self, in_channels: int, out_channels: int, e: float = 0.5,
+                 shortcut: bool = True, folded: bool = False, device=None):
+        super().__init__()
+        c_h = int(out_channels * e)
+        self.shortcut = shortcut and in_channels == out_channels
+        self.conv1 = ConvBNorm(in_channels, c_h, 1, folded=folded, device=device)
+        self.conv2 = ConvBNorm(c_h, out_channels, 3, folded=folded, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        return x + out if self.shortcut else out
+
+
+class C3Module(nn.Module):
+    """CSP C3 block."""
+
+    def __init__(self, in_channels: int, out_channels: int, e: float = 0.5,
+                 shortcut: bool = True, num_bottlenecks: int = 1, folded: bool = False,
+                 device=None):
+        super().__init__()
+        c_h = int(out_channels * e)
+        self.conv1 = ConvBNorm(in_channels, c_h, 1, folded=folded, device=device)
+        self.bottlenecks = nn.Sequential(*[
+            BottleNeckModule(c_h, c_h, e=1.0, shortcut=shortcut, folded=folded, device=device)
+            for _ in range(num_bottlenecks)])
+        self.conv2 = ConvBNorm(in_channels, c_h, 1, folded=folded, device=device)
+        self.conv3 = ConvBNorm(2 * c_h, out_channels, 1, folded=folded, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out1 = self.bottlenecks(self.conv1(x))
+        out2 = self.conv2(x)
+        return self.conv3(torch.cat([out1, out2], dim=1))
+
+
+def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k max pool, stride 1, padded with -inf to keep the size."""
+    return F.max_pool2d(x, k, stride=1, padding=k // 2)
+
+
+class CSPSPPFModule(nn.Module):
+    """Cross-stage-partial SPPF."""
+
+    def __init__(self, in_channels: int, out_channels: int, e: float = 0.5,
+                 pool_kernel_size: int = 5, folded: bool = False, device=None):
+        super().__init__()
+        c_h = int(out_channels * e)
+        self.pool_kernel_size = pool_kernel_size
+        self.conv_1_3_4 = nn.Sequential(
+            ConvBNorm(in_channels, c_h, 1, folded=folded, device=device),
+            ConvBNorm(c_h, c_h, 3, folded=folded, device=device),
+            ConvBNorm(c_h, c_h, 1, folded=folded, device=device))
+        self.conv2 = ConvBNorm(in_channels, c_h, 1, folded=folded, device=device)
+        self.conv5 = ConvBNorm(4 * c_h, c_h, 1, folded=folded, device=device)
+        self.conv6 = ConvBNorm(c_h, c_h, 3, folded=folded, device=device)
+        self.conv7 = ConvBNorm(2 * c_h, out_channels, 1, folded=folded, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.pool_kernel_size
+        x1 = self.conv_1_3_4(x)
+        y1 = self.conv2(x)
+        p1 = max_pool_same(x1, k)
+        p2 = max_pool_same(p1, k)
+        p3 = max_pool_same(p2, k)
+        x1 = self.conv6(self.conv5(torch.cat([x1, p1, p2, p3], dim=1)))
+        return self.conv7(torch.cat([x1, y1], dim=1))
+
+
+class EffiDecHead(nn.Module):
+    """Efficient decoupled head. Output (N, ny, nx, na, 1 + C + 4) =
+    [conf, cls, bbox], the JAX package's layout.
+
+    The shared regression tower feeds both conf and bbox and is computed
+    once. The stem width is round(cin * width_multiple), not channels8.
+    The mask and keypoint branches are not in the port yet (ROADMAP §A.11,
+    §A.13); their depths, which configs may carry, have no effect here.
+    """
+
+    def __init__(self, in_channels: int, num_classes: int, num_anchors: int = 3,
+                 width_multiple: float = 1.0, reg_fmap_depth: int = 1,
+                 cls_fmap_depth: int = 1, masks_fmap_depth: Optional[int] = None,
+                 keypoints_fmap_depth: Optional[int] = None, folded: bool = False,
+                 device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        stem_out = max(round(in_channels * width_multiple), 1)
+        reg_depth = max(round(reg_fmap_depth), 1)
+        cls_depth = max(round(cls_fmap_depth), 1)
+
+        def conv3(ci):
+            return ConvBNorm(ci, stem_out, 3, 1, folded=folded, device=device)
+
+        self.stem_layer = conv3(in_channels)
+        self.regression_fmap_layer = nn.Sequential(*[conv3(stem_out) for _ in range(reg_depth + 1)])
+        self.classification_fmap_layer = nn.Sequential(*[conv3(stem_out) for _ in range(cls_depth)])
+        self.conf_layer = nn.Conv2d(stem_out, num_anchors, 1, device=device)
+        self.bbox_layer = nn.Conv2d(stem_out, num_anchors * 4, 1, device=device)
+        self.cls_layer = nn.Conv2d(stem_out, num_anchors * num_classes, 1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, ny, nx = x.shape
+        stem = self.stem_layer(x)
+        reg = self.regression_fmap_layer(stem)
+        cls_f = self.classification_fmap_layer(stem)
+
+        def per_anchor(t, last_dim):
+            return t.permute(0, 2, 3, 1).reshape(n, ny, nx, self.num_anchors, last_dim)
+
+        return torch.cat([per_anchor(conv2d(reg, self.conf_layer), 1),
+                          per_anchor(conv2d(cls_f, self.cls_layer), self.num_classes),
+                          per_anchor(conv2d(reg, self.bbox_layer), 4)], dim=-1)
+
+
+def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """PyTorch's default initialisation drawn from `generator`: conv
+    weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)); BatchNorm at
+    weight 1, bias 0, mean 0, var 1. Draws on the CPU, then copies."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                bound = 1.0 / math.sqrt(fan_in)
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return module
+
+
+def randomize_batchnorm_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Non-trivial BatchNorm state drawn from `generator`, as a trained net
+    has: weight and running_var U(0.5, 1.5), bias and running_mean
+    N(0, 0.1^2). Draws on the CPU, then copies."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                for t, (lo, hi) in ((m.weight, (0.5, 1.5)), (m.running_var, (0.5, 1.5))):
+                    t.copy_(torch.empty(t.shape).uniform_(lo, hi, generator=generator))
+                for t in (m.bias, m.running_mean):
+                    t.copy_(torch.randn(t.shape, generator=generator) * 0.1)
+    return module
+
+
+def cast_conv_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Serving form of the weights: every conv weight in `dtype` and
+    channels_last (the layout the kernels read without a copy); biases,
+    BatchNorm and other parameters stay f32."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                m.weight = nn.Parameter(
+                    m.weight.to(dtype=dtype, memory_format=torch.channels_last),
+                    requires_grad=m.weight.requires_grad)
+    return module

@@ -1,0 +1,77 @@
+"""Fused 3x3 conv (stride 1, pad 1) + bias + activation.
+
+Replaces the TPU kernel vision_conglomerate_tpu/ops/conv_pallas.py
+:conv3x3_bias_act (Pallas body `_conv3x3_kernel`) with the CUDA kernel in
+csrc/conv3x3_bias_act.cu: an implicit GEMM over M = B*H*W, K = 9*Cin,
+N = Cout with f32 accumulation and epilogue and one store in x.dtype. The
+serve path calls it for every BN-folded stride-1 3x3 conv and every fused
+RepVGG `conv_reparam`.
+
+Bound on the H100 at the detector's shapes (H*W 160^2..20^2, Cin 32..768,
+Cout 32..512): bytes for the narrow high-resolution convs (~144 FLOPs per
+byte at 32 channels), the tensor cores for the deep ones. Each block loads
+its output rows with a one-pixel halo into shared memory once per input
+channel chunk and reuses it for all 9 taps (see the source).
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
+launches the kernel or raises. `conv3x3_bias_act.launches` counts launches.
+"""
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+from .fused_matmul import ACTIVATIONS, apply_activation, check_launch_args
+
+_ARGTYPES = {"conv3x3_bias_act_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p]}
+
+
+def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           activation: Optional[str] = "silu") -> torch.Tensor:
+    """The kernel's function in plain PyTorch: f32 conv, bias and
+    activation, cast to x.dtype. x NHWC, w HWIO; returns NHWC."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.permute(3, 2, 0, 1).float(),
+                 b.float(), padding=1)
+    return apply_activation(y, activation).to(x.dtype).permute(0, 2, 3, 1)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            activation: Optional[str]) -> torch.Tensor:
+    if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]) or b.shape != (w.shape[3],):
+        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} "
+                         "are not NHWC x, (3, 3, Cin, Cout) w, (Cout,) b")
+    n, h, w_dim, cin = x.shape
+    cout = w.shape[3]
+    check_launch_args(x, w, b, activation, (x.numel(), n * h * w_dim * cout, 9 * cin * cout))
+    wk = w.permute(3, 0, 1, 2).contiguous()  # (Cout, 3, 3, Cin); free for channels_last OIHW
+    bias = b.to(torch.float32).contiguous()
+    y = torch.empty((n, h, w_dim, cout), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    vec = int(cin % 8 == 0 and x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        lib = _cuda.load("conv3x3_bias_act", _ARGTYPES, x.device.index)
+        code = lib.conv3x3_bias_act_bf16(
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            n, h, w_dim, cin, cout, ACTIVATIONS[activation], vec,
+            torch.cuda.current_stream().cuda_stream)
+    _cuda.check(lib, "conv3x3_bias_act", code)
+    conv3x3_bias_act.launches += 1
+    return y
+
+
+def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     activation: Optional[str] = "silu") -> torch.Tensor:
+    """act(conv3x3(x, w; stride 1, pad 1) + b); x (B, H, W, Cin) NHWC,
+    w (3, 3, Cin, Cout) HWIO, b (Cout,); returns (B, H, W, Cout)."""
+    if x.device.type == "cpu":
+        return conv3x3_bias_act_plain(x, w, b, activation)
+    if x.device.type == "cuda":
+        return _launch(x, w, b, activation)
+    raise ValueError(f"no conv3x3_bias_act for device {x.device}")
+
+
+conv3x3_bias_act.launches = 0

@@ -1,0 +1,53 @@
+"""Host-side rendering and summary tables (cv2/pandas), as in the JAX
+package's utils/drawing.py. Inputs are HWC numpy images."""
+from typing import Any, Dict, List, Optional
+
+import cv2
+import numpy as np
+import pandas as pd
+
+
+FONT = cv2.FONT_HERSHEY_SIMPLEX
+FONT_SCALE = 0.4
+
+
+def apply_bboxes(img: np.ndarray, bboxes: np.ndarray, box_thickness: int = 2,
+                 text_thickness: int = 2, colormap: Optional[np.ndarray] = None,
+                 classmap: Optional[List[Dict[str, Any]]] = None) -> np.ndarray:
+    """Draw (score, class, x1, y1, x2, y2) boxes with labels on an HWC
+    image (uint8, or floats in [0, 1])."""
+    if img.ndim != 3 or bboxes.ndim != 2 or bboxes.shape[1] != 6:
+        raise ValueError(f"expected an HWC image and (n, 6) boxes, got shapes "
+                         f"{img.shape} and {bboxes.shape}")
+    if img.dtype != np.uint8:
+        img = (img * 255).astype(np.uint8)
+    img = np.ascontiguousarray(img)
+    if colormap is None:
+        colormap = np.random.default_rng(0).integers(
+            0, 255, size=(int(bboxes[:, 1].max()) + 1, 3))
+    for box in bboxes:
+        score, class_idx, x1, y1, x2, y2 = box
+        class_idx = int(class_idx)
+        x1, y1, x2, y2 = (round(float(v)) for v in (x1, y1, x2, y2))
+        color = tuple(int(v) for v in colormap[class_idx])
+        img = cv2.rectangle(img, (x1, y1), (x2, y2), color, box_thickness)
+        name = classmap[class_idx]["name"] if classmap else class_idx
+        text = f"({name} {score :.2f})"
+        tw, th = cv2.getTextSize(text, FONT, FONT_SCALE, text_thickness)[0]
+        img = cv2.rectangle(img, (x1, y1 - th - 4), (x1 + tw + 2, y1), color, cv2.FILLED)
+        img = cv2.putText(img, text, (x1, y1 - 2), FONT, FONT_SCALE, (0, 0, 0), text_thickness)
+    return img
+
+
+def detection_summary_df(bboxes: np.ndarray, classmap: Optional[List[Dict[str, Any]]] = None
+                         ) -> Optional[pd.DataFrame]:
+    """Per-box summary rows of (n, 6) [score, cls, x, y, w, h] boxes, the
+    coordinates truncated to int; None for no boxes."""
+    data = []
+    for score, class_idx, *coords in np.asarray(bboxes):
+        class_idx = int(class_idx)
+        row = {"confidence": score,
+               "class": classmap[class_idx]["name"] if classmap else class_idx}
+        row.update({k: int(v) for k, v in zip(("X", "Y", "W", "H"), coords)})
+        data.append(row)
+    return pd.DataFrame(data) if data else None
