@@ -19,15 +19,19 @@ Phases (any failure exits non-zero; nothing is caught):
    limits per field group (MODEL_LIMITS). Warm end-to-end throughput is
    (32 - 8) images over the difference of two later calls on 32 and 8
    images, so each call's model load and first batch cancel.
-3. kernels: each kernel runs at every shape the serve forward gave it (and
-   a ragged M=1025 for the matmul), in bf16 on the card, against its plain
-   version (f32 math, cast to bf16) within |k - p| <= 1e-2 + 1e-2 |p|:
+3. kernels: each kernel runs at every shape the serve forward gave it and
+   at ragged shapes (matmul M=1025, and K=20 N=5; conv Cin 3 -> Cout 5 at
+   7x300, Cin 40 -> Cout 24 at 20x20), in bf16 on the card, against its
+   plain version (f32 math, cast to bf16) within |k - p| <= 1e-2 + 1e-2 |p|:
    both round an f32 value to bf16 after summing in different orders, and
    one bf16 ulp is at most 2^-7 of the value. Kernel, plain and library
    (`torch.addmm`/`F.conv2d` + activation, cuDNN/cuBLAS, timed here and
    never used by the port) times are device times from CUDA events, summed
    per serve batch over the main path's launches, beside the bound
-   max(bytes / 3.35 TB/s, bf16 FLOPs / 989 TFLOP/s) of the H100 SXM.
+   max(bytes / 3.35 TB/s, bf16 FLOPs / 989 TFLOP/s) of the H100 SXM. Each
+   shape's line also gives the achieved rate (TFLOP/s for the conv, TB/s
+   for the matmul), the multiples of the bound and of the library time,
+   and the output tile the C launcher chose.
 
 Output: per-shape lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -281,10 +285,22 @@ def host_phases(preds, og_img):
 
 def kernel_cases(seen):
     """Distinct kernel shapes of one serve batch with their launch counts,
-    plus the matmul's ragged M."""
+    plus ragged shapes that the serve path does not give."""
     cases = Counter(seen)
     cases[("matmul", (1, 64, 1025, 1), 64, "silu")] += 0  # M = 1025, not a multiple of 128
+    cases[("matmul", (1, 20, 100, 1), 5, "relu")] += 0  # K, N not multiples of 8
+    cases[("conv3x3", (1, 3, 7, 300), 5, "silu")] += 0  # Cin, Cout not multiples of 8
+    cases[("conv3x3", (1, 40, 20, 20), 24, "silu")] += 0  # 9 * Cin not a multiple of 64
     return cases
+
+
+def launcher_tile(route, m, n, k):
+    """The (BM, BN) tile the C launcher picks for an M x N x K GEMM on card 0."""
+    from vision_conglomerate_torch.ops import _cuda, conv3x3, fused_matmul
+
+    name, module = KERNELS[route]["name"], fused_matmul if route == "matmul" else conv3x3
+    lib = _cuda.load(name, module._ARGTYPES, 0)
+    return _cuda.tile(lib, name, m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def run_case(route, shape, cout, act, g):
@@ -298,7 +314,8 @@ def run_case(route, shape, cout, act, g):
     if route == "matmul":
         m = b * h * w
         x = torch.randn(m, cin, device=dev, generator=g).bfloat16()
-        wt = (torch.randn(cin, cout, device=dev, generator=g) / cin ** 0.5).bfloat16()
+        # (Cin, Cout) view of a (Cout, Cin) weight, as the serve path passes it
+        wt = (torch.randn(cout, cin, device=dev, generator=g) / cin ** 0.5).bfloat16().t()
         kern = lambda: matmul_bias_act(x, wt, bias, act)  # noqa: E731
         plain = lambda: matmul_bias_act_plain(x, wt, bias, act)  # noqa: E731
         lib = lambda: apply_activation(torch.addmm(bias.bfloat16(), x, wt), act)  # noqa: E731
@@ -306,9 +323,11 @@ def run_case(route, shape, cout, act, g):
         flops = 2 * m * cin * cout
     else:
         x = torch.randn(b, h, w, cin, device=dev, generator=g).bfloat16()
-        wt = (torch.randn(3, 3, cin, cout, device=dev, generator=g) / (9 * cin) ** 0.5).bfloat16()
+        # HWIO view of a channels_last OIHW weight, as the serve path passes it
+        w_oihw = (torch.randn(cout, 3, 3, cin, device=dev, generator=g) / (9 * cin) ** 0.5
+                  ).bfloat16().permute(0, 3, 1, 2)
+        wt = w_oihw.permute(2, 3, 1, 0)
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last
-        w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         kern = lambda: conv3x3_bias_act(x, wt, bias, act)  # noqa: E731
         plain = lambda: conv3x3_bias_act_plain(x, wt, bias, act)  # noqa: E731
         lib = lambda: apply_activation(  # noqa: E731
@@ -323,7 +342,8 @@ def run_case(route, shape, cout, act, g):
     bnd, by = bound_ms(nbytes, flops)
     return dict(route=route, shape=list(shape), cout=cout, act=act, ok=ok,
                 max_abs_err=err.max().item(), ms=device_ms(kern), plain_ms=device_ms(plain),
-                library_ms=device_ms(lib), bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops)
+                library_ms=device_ms(lib), bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+                tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)))
 
 
 def kernel_phase(seen, launches):
@@ -334,12 +354,15 @@ def kernel_phase(seen, launches):
         r["launches_per_batch"] = per_batch
         rows.append(r)
         b, cin, h, w = shape
-        desc = (f"M={b * h * w} K={cin} N={cout}" if route == "matmul"
-                else f"B={b} {h}x{w} {cin}->{cout}")
+        if route == "matmul":
+            desc, rate = f"M={b * h * w} K={cin} N={cout}", f"{r['bytes'] / r['ms'] / 1e9:.3f} TB/s"
+        else:
+            desc, rate = f"B={b} {h}x{w} {cin}->{cout}", f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
         print(f"kernel {KERNELS[route]['name']} {desc} x{per_batch}/batch: "
-              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
-              f"bound {r['bound_ms']:.4f} by {r['bound_by']}), max |err| {r['max_abs_err']:.3g}"
-              f" {'ok' if r['ok'] else 'MISMATCH'}")
+              f"{r['ms']:.4f} ms = {rate}, {r['ms'] / r['bound_ms']:.1f}x bound "
+              f"({r['bound_ms']:.4f} by {r['bound_by']}), {r['ms'] / r['library_ms']:.2f}x library "
+              f"({r['library_ms']:.4f}), plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}, "
+              f"max |err| {r['max_abs_err']:.3g} {'ok' if r['ok'] else 'MISMATCH'}")
     for r in rows:
         check(r["ok"], f"{r['route']} kernel disagrees with its plain version at {r['shape']}")
     summary = []

@@ -8,6 +8,10 @@ within 1e-4 (f32 sums in another order). The CUDA kernels themselves run
 only on the card (chip_smoke.py); here the host-side checks around them
 are tested.
 """
+import ctypes
+import pathlib
+import re
+
 import numpy as np
 import pytest
 
@@ -214,3 +218,22 @@ def test_deploy_form_routes_stride1_convs_to_kernels(monkeypatch):
     assert calls == want and want["matmul"] > 0 and want["conv3x3"] > 0
     assert blocks.kernel_route(net.backbone.conv0.conv, "silu") is None  # 6x6/s2 stem
     assert blocks.kernel_route(net.backbone.conv1.conv, "silu") is None  # 3x3/s2
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "int*": ctypes.POINTER(ctypes.c_int)}
+
+
+@pytest.mark.parametrize("name,module", [("matmul_bias_act", fused_matmul),
+                                         ("conv3x3_bias_act", conv3x3)])
+def test_argtypes_match_c_entry_points(name, module):
+    """Each ctypes signature a wrapper declares is the C entry point's, so no
+    pointer is cut to 32 bits and no argument shifts (only the card would
+    show either)."""
+    source = (pathlib.Path(_cuda.CSRC) / f"{name}.cu").read_text()
+    for fn, argtypes in module._ARGTYPES.items():
+        found = re.search(rf"\bint {fn}\(([^)]*)\)", source)
+        assert found, fn
+        types = [re.sub(r"\s*\w+$", "", p.strip()).replace(" *", "*")  # drop the name
+                 for p in found.group(1).split(",")]
+        assert [_C_TYPES[t] for t in types] == argtypes, fn

@@ -102,6 +102,18 @@ def load(name: str, argtypes: Dict[str, List], device: int) -> ctypes.CDLL:
         return lib
 
 
+# argtypes of each library's `<name>_tile(M, N, K, sms, *bm, *bn)`
+TILE_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+
+
+def tile(lib: ctypes.CDLL, name: str, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """The (BM, BN) output tile that library `name`'s launcher picks for an
+    M x N x K GEMM on a card of `sms` SMs."""
+    bm, bn = ctypes.c_int(), ctypes.c_int()
+    check(lib, name, getattr(lib, f"{name}_tile")(m, n, k, sms, ctypes.byref(bm), ctypes.byref(bn)))
+    return bm.value, bn.value
+
+
 def check(lib: ctypes.CDLL, name: str, code: int):
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()

@@ -8,10 +8,15 @@ serve path calls it for every BN-folded stride-1 3x3 conv and every fused
 RepVGG `conv_reparam`.
 
 Bound on the H100 at the detector's shapes (H*W 160^2..20^2, Cin 32..768,
-Cout 32..512): bytes for the narrow high-resolution convs (~144 FLOPs per
-byte at 32 channels), the tensor cores for the deep ones. Each block loads
-its output rows with a one-pixel halo into shared memory once per input
-channel chunk and reuses it for all 9 taps (see the source).
+Cout 32..512): the tensor cores, from ~144 FLOPs per byte at 32 channels
+to ~2800 at 768->512. The kernel is the nine-tap case of the implicit GEMM
+in csrc/igemm_sm90.cuh: M = B*H*W output pixels as one flat index, K =
+9*Cin. A ring of shared-memory stages takes each tap's shifted pixels
+(cp.async gathers, zero outside the image) and the weight tile (TMA) in the
+128-byte-swizzled layout that wgmma reads, with two or more K tiles in
+flight while wgmma runs; bias and activation run on the accumulators in
+registers before 16-byte bf16 stores. The C launcher picks the output tile
+per shape.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises. `conv3x3_bias_act.launches` counts launches.
@@ -26,7 +31,7 @@ from . import _cuda
 from .fused_matmul import ACTIVATIONS, apply_activation, check_launch_args
 
 _ARGTYPES = {"conv3x3_bias_act_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p]}
+             + [ctypes.c_void_p], "conv3x3_bias_act_tile": _cuda.TILE_ARGTYPES}
 
 
 def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -51,12 +56,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((n, h, w_dim, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    vec = int(cin % 8 == 0 and x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         lib = _cuda.load("conv3x3_bias_act", _ARGTYPES, x.device.index)
         code = lib.conv3x3_bias_act_bf16(
             x.data_ptr(), wk.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            n, h, w_dim, cin, cout, ACTIVATIONS[activation], vec,
+            n, h, w_dim, cin, cout, ACTIVATIONS[activation],
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(lib, "conv3x3_bias_act", code)
     conv3x3_bias_act.launches += 1

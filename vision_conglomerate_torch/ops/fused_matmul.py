@@ -8,9 +8,12 @@ x.dtype. The serve path calls `pointwise_conv_act` for every BN-folded
 
 Bound on the H100 at the detector's shapes (M = B*H*W up to 4*160^2, K =
 Cin 32..1024, N = Cout 32..512): bytes, since K*N/(K+N) FLOPs per byte
-stays under the card's ~295. The kernel reads x once, keeps the weight tile
-in shared memory and writes y once, masking ragged edges instead of padding
-(see the source for the tiling).
+stays under the card's ~295. The kernel is the one-tap case of the
+implicit GEMM in csrc/igemm_sm90.cuh: TMA copies fill a ring of
+shared-memory stages that wgmma reads, and bias and activation run on the
+accumulators in registers before 16-byte bf16 stores. x is read once per
+N tile and y written once; ragged M, N and K are zero-filled and masked,
+not padded. The C launcher picks the output tile per shape.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises. `matmul_bias_act.launches` counts launches.
@@ -25,7 +28,7 @@ from . import _cuda
 
 ACTIVATIONS = {None: 0, "none": 0, "silu": 1, "relu": 2}
 _ARGTYPES = {"matmul_bias_act_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-             + [ctypes.c_void_p]}
+             + [ctypes.c_void_p], "matmul_bias_act_tile": _cuda.TILE_ARGTYPES}
 
 
 def apply_activation(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
@@ -76,12 +79,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    vec = int(k % 8 == 0 and x.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         lib = _cuda.load("matmul_bias_act", _ARGTYPES, x.device.index)
         code = lib.matmul_bias_act_bf16(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(), m, n, k,
-            ACTIVATIONS[activation], vec, torch.cuda.current_stream().cuda_stream)
+            ACTIVATIONS[activation], torch.cuda.get_device_properties(x.device).multi_processor_count,
+            torch.cuda.current_stream().cuda_stream)
     _cuda.check(lib, "matmul_bias_act", code)
     matmul_bias_act.launches += 1
     return y
