@@ -3,7 +3,7 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --profile  # also writes a torch.profiler table
+    python3 chip_smoke.py --profile  # also writes torch.profiler tables
 
 Phases (any failure exits non-zero; nothing is caught):
 1. build: nvcc compiles every csrc/*.cu of the serve path for sm_90a, one
@@ -32,6 +32,31 @@ Phases (any failure exits non-zero; nothing is caught):
    shape's line also gives the achieved rate (TFLOP/s for the conv, TB/s
    for the matmul), the multiples of the bound and of the library time,
    and the output tile the C launcher chose.
+
+4. train: 64 train and 16 valid synthetic 640x640 JPEGs (2-6 boxes each,
+   YOLO labels, 80 classes) are written from SEED in a temp dir, with temp
+   copies of the shipped config and anchors. The port's train_det entry
+   point (`run`) trains the shipped model (full width, bf16 compute, f32
+   parameters) at batch 16 for 2 epochs with an eval each epoch and the lr
+   schedule. Each epoch's mean loss must be finite (so every step's is),
+   and the metrics CSVs, a snapshot and best_model/ (f32 conv kernels) must
+   exist. The second epoch gives the train step time (host clock, the
+   epoch's wall time over its steps, loader included) and images/s.
+5. card vs CPU: one train step of one seeded net on one batch of 2 train
+   images, on the card in f32 and in bf16 against the CPU in f32, by the
+   loss (relative), the gradient of every parameter (cosine; the conv
+   biases in front of a train-mode BatchNorm have no gradient in exact
+   arithmetic and are skipped) and the BatchNorm running statistics after
+   the step (max |card - cpu|), within TRAIN_LIMITS; the card's bf16
+   gradients are held to the CPU's own bf16 step (BF16_COS_RATIO).
+6. learning: 20 steps on one fixed batch of 16 on the card; the last loss
+   must be below the first. Steps 6-20 give the step time without the
+   loader (host clock, synchronized).
+7. serve what was trained: best_model/ through `run_detection_inference` on
+   8 of the valid images; both kernel counters are zeroed before and must
+   have risen after, and output.csv and the images must be written.
+With --profile, 3 fixed-batch train steps are profiled too: device-busy
+share and the top device ops (chiprun_out/train_profile.txt).
 
 Output: per-shape lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -67,6 +92,26 @@ KERNEL_RTOL = KERNEL_ATOL = 1e-2
 # the 1280x720 originals) 0.0722 and 0.00365. Absolute, so the boxes' grid
 # offset (up to 1280 px, the same on both sides) does not widen them.
 MODEL_LIMITS = {"logits": (3.5e-3, 5e-4), "boxes": (0.22, 0.011)}
+
+# One train step at 640x640 on 2 images against the CPU f32 step, for the
+# card in f32 (TF32 off) and in bf16: the loss's relative difference, 1 -
+# the lowest gradient cosine over the parameters, and max |d| of the
+# BatchNorm running statistics, about 3x what this script read on an H100
+# (PERF.md): f32 1.02e-6, 2.38e-4, 1.93e-4; bf16 1.43e-3 and 8.92e-2. In
+# bf16 single gradients sit far from the f32 ones (the JAX package's too:
+# the activations between layers are bf16), so the bf16 gradients are held
+# to the CPU's own bf16 step instead: their 1 - cosine from the f32 step,
+# all gradients as one vector and the median over parameters, may be at
+# most BF16_COS_RATIO times the CPU bf16 step's (read: 1.48 and 1.52).
+TRAIN_LIMITS = {
+    "f32": {"loss_rel": 3e-6, "one_minus_min_cos": 7e-4, "bn_stats": 6e-4},
+    "bf16": {"loss_rel": 4.5e-3, "bn_stats": 0.27},
+}
+BF16_COS_RATIO = 3.0
+TRAIN_BATCH = 16
+TRAIN_EPOCHS = 2
+N_TRAIN, N_VALID = 64, 16
+LEARN_STEPS = 20
 
 KERNELS = {
     "matmul": dict(name="matmul_bias_act", route="cuda",
@@ -409,10 +454,329 @@ def profile_forward(forward, fwd_ms, path):
           f"profiler ({wall_ms / iters:.3f} ms with it)")
 
 
+def write_train_data(root):
+    """64 train and 16 valid 640x640 JPEGs with 2-6 filled boxes each and
+    YOLO labels over 80 classes (every class present), plus temp copies of
+    the shipped config (data_path pointing here) and anchors."""
+    import yaml
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    box_id = 0
+    for split, n in (("train", N_TRAIN), ("valid", N_VALID)):
+        d = os.path.join(root, "data", split)
+        os.makedirs(d)
+        for i in range(n):
+            img = rng.integers(0, 80, (640, 640, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(2, 7))):
+                w, h = rng.uniform(0.05, 0.4, 2)
+                cx, cy = rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2)
+                cls = box_id % NUM_CLASSES
+                box_id += 1
+                x0, x1 = int((cx - w / 2) * 640), int((cx + w / 2) * 640)
+                y0, y1 = int((cy - h / 2) * 640), int((cy + h / 2) * 640)
+                img[y0:y1, x0:x1] = (np.asarray([cls * 3, 255 - cls * 3, 128 + cls]) % 256)
+                rows.append(f"{cls} {cx:.6f} {cy:.6f} {w:.6f} {h:.6f}")
+            Image.fromarray(img).save(os.path.join(d, f"img_{i:03d}.jpg"), quality=90)
+            with open(os.path.join(d, f"img_{i:03d}.txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+    with open(os.path.join(REPO, "configs", "detection", "config.yaml")) as f:
+        config = yaml.safe_load(f)
+    tc = config["train_config"]
+    tc["data_path"] = os.path.join(root, "data")
+    tc["img_config"]["img_ext"] = "jpg"
+    config_path = os.path.join(root, "config.yaml")
+    anchors_path = os.path.join(root, "anchors.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    with open(os.path.join(REPO, "configs", "detection", "anchors.yaml")) as src, \
+            open(anchors_path, "w") as dst:
+        dst.write(src.read())
+    return config, config_path, anchors_path
+
+
+def run_train_cli(root, config, config_path, anchors_path):
+    """The port's train_det `run` at the shipped config on the card, cwd in
+    root; returns (pipeline, seconds, peak bytes allocated)."""
+    from vision_conglomerate_torch import train_det
+
+    args = argparse.Namespace(
+        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, checkpoint_interval=1, eval_interval=1,
+        no_verbose=True, lr_schedule=True, lr_schedule_interval=1, use_ddp=False,
+        checkpoint_path="", profile_dir="", map_eval=False, lr=0.0, device="cuda")
+    cwd = os.getcwd()
+    os.chdir(root)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        pipe = train_det.run(args, config, config_path, anchors_path)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    return pipe, time.time() - t0, torch.cuda.max_memory_allocated()
+
+
+def check_train_artifacts(root, pipe):
+    from vision_conglomerate_torch.train.checkpoint import load_checkpoint
+
+    hist = pipe._train_metrics
+    check(len(hist) == TRAIN_EPOCHS and len(pipe._eval_metrics) == TRAIN_EPOCHS,
+          f"{len(hist)} train and {len(pipe._eval_metrics)} eval records")
+    for m in hist + pipe._eval_metrics:
+        # an epoch's mean loss is finite only if every step's loss was
+        check(bool(np.isfinite(m["aggregate_loss"])), f"non-finite loss in {m}")
+    for rel in ("metrics/detection/train_metrics.csv", "metrics/detection/eval_metrics.csv",
+                "saved_model/detection/best_model/DetectionNet.ckpt.tar",
+                "saved_model/detection/best_model/config/config.yaml"):
+        check(os.path.isfile(os.path.join(root, rel)), f"train artifact missing: {rel}")
+    snaps = [f for _, _, fs in os.walk(os.path.join(root, "saved_model/detection/checkpoints"))
+             for f in fs if f.endswith(".ckpt.tar")]
+    check(len(snaps) == TRAIN_EPOCHS, f"snapshots: {snaps}")
+    manifest = load_checkpoint(os.path.join(
+        root, "saved_model/detection/best_model/DetectionNet.ckpt.tar"))
+    kernels = []
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "kernel":
+                kernels.append(v)
+    walk(manifest["NETWORK_PARAMS"]["params"])
+    n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in pipe.model.modules())
+    check(len(kernels) == n_convs and all(k.dtype == np.float32 for k in kernels),
+          f"best model: {len(kernels)} conv kernels for {n_convs} convs, dtypes "
+          f"{sorted({str(k.dtype) for k in kernels})} (want float32)")
+
+
+def seeded_net(config, anchors, dtype=torch.float32, device="cpu", state=None):
+    """A train-form net with Xavier init and non-trivial BatchNorm state from
+    SEED (or the given state_dict), computing in dtype on device."""
+    from vision_conglomerate_torch.models.detection import DetectionNet
+    from vision_conglomerate_torch.nn.blocks import randomize_batchnorm_
+    from vision_conglomerate_torch.nn.initializers import xavier_conv_init
+
+    net = DetectionNet(NUM_CLASSES, config["model_config"], anchors=anchors, dtype=dtype,
+                       device="cpu")
+    if state is None:
+        g = torch.Generator().manual_seed(SEED)
+        randomize_batchnorm_(xavier_conv_init(net, g), g)
+    else:
+        net.load_state_dict(state)
+    return net.to(device)
+
+
+def trainer(net, config):
+    from vision_conglomerate_torch.train.detection_trainer import TrainDetectionPipeline
+    from vision_conglomerate_torch.train.optim import make_optimizer
+    from vision_conglomerate_torch.train_det import make_loss_config
+
+    opt, _ = make_optimizer(config["train_config"]["optimizer_config"], net)
+    pipe = TrainDetectionPipeline(net, make_loss_config(config, NUM_CLASSES), opt, init_scheme=None)
+    net.train()
+    return pipe
+
+
+def train_batch(config, n):
+    """The first n train images and their padded labels, as the loader
+    collates them (numpy)."""
+    from vision_conglomerate_torch.train_det import make_dataset
+
+    ds = make_dataset(config, "train")
+    return ds.collate_fn([ds[i] for i in range(n)])
+
+
+def no_grad_biases(net):
+    """Names of the conv biases in front of a train-mode BatchNorm: their
+    gradient is zero in exact arithmetic, so both sides hold rounding noise."""
+    from vision_conglomerate_torch.nn.blocks import ConvBNorm
+
+    return {f"{n}.conv.bias" for n, m in net.named_modules()
+            if isinstance(m, ConvBNorm) and not m.folded and m.conv.bias is not None}
+
+
+def train_step_result(net, config, batch):
+    """(loss, gradients, BatchNorm running statistics) of one train step,
+    copied to the CPU as f32."""
+    dev = net.sm_anchors.device
+    pipe = trainer(net, config)
+    loss = pipe.train_step(*[torch.from_numpy(a).to(dev) for a in batch])["aggregate_loss"].item()
+    grads = {n: p.grad.float().cpu() for n, p in net.named_parameters() if p.requires_grad}
+    stats = {n: b.float().cpu() for n, b in net.named_buffers() if "running_" in n}
+    return loss, grads, stats
+
+
+def compare_steps(a, b, names):
+    """How far step result a is from step result b (train_step_result)."""
+    (la, ga, sa), (lb, gb, sb) = a, b
+    cos = {n: F.cosine_similarity(ga[n].double().flatten(), gb[n].double().flatten(),
+                                  dim=0).item() for n in names}
+    worst = min(cos, key=cos.get)
+    flat_a = torch.cat([ga[n].double().flatten() for n in names])
+    flat_b = torch.cat([gb[n].double().flatten() for n in names])
+    return dict(loss=la, loss_ref=lb, loss_rel=abs(la - lb) / abs(lb),
+                one_minus_min_cos=1.0 - cos[worst], worst_grad=worst,
+                one_minus_median_cos=1.0 - float(np.median(list(cos.values()))),
+                one_minus_global_cos=1.0 - F.cosine_similarity(flat_a, flat_b, dim=0).item(),
+                bn_stats=max((sa[n] - sb[n]).abs().max().item() for n in sb))
+
+
+def card_vs_cpu_step(config, anchors):
+    """One seeded net, one batch of 2: the step on the card in f32 and in
+    bf16 against the CPU f32 step (TRAIN_LIMITS). The CPU's own bf16 step
+    is measured beside them: how far bf16 alone moves the step. The anchors
+    get no gradient, and the conv biases in front of a train-mode BatchNorm
+    only rounding noise: both are left out of the cosines."""
+    cpu = seeded_net(config, anchors)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    batch = train_batch(config, 2)
+    skip = no_grad_biases(cpu)
+    ref = train_step_result(cpu, config, batch)
+    names = [n for n in ref[1] if n not in skip]
+    steps = {tag: train_step_result(seeded_net(config, anchors, dtype, dev, state), config, batch)
+             for tag, dtype, dev in (("f32", torch.float32, "cuda"),
+                                     ("bf16", torch.bfloat16, "cuda"),
+                                     ("cpu_bf16", torch.bfloat16, "cpu"))}
+    out = {tag: compare_steps(r, ref, names) for tag, r in steps.items()}
+    out["bf16_vs_cpu_bf16"] = compare_steps(steps["bf16"], steps["cpu_bf16"], names)
+    for tag, r in out.items():
+        print(f"train: one step on 2 images at 640x640, {tag} vs cpu f32: loss {r['loss']:.6f} vs "
+              f"{r['loss_ref']:.6f}, rel {r['loss_rel']:.3e}; 1 - gradient cosine: lowest "
+              f"{r['one_minus_min_cos']:.3e} ({r['worst_grad']}), median "
+              f"{r['one_minus_median_cos']:.3e}, all as one vector "
+              f"{r['one_minus_global_cos']:.3e}; BatchNorm running stats max |d| "
+              f"{r['bn_stats']:.3e}".replace("bf16_vs_cpu_bf16 vs cpu f32", "card bf16 vs cpu bf16")
+              + (f"; limits {TRAIN_LIMITS[tag]}" if tag in TRAIN_LIMITS else ""))
+    print(f"train: {len(names)} parameters compared; {len(skip)} conv biases before BatchNorm "
+          f"and the anchors left out")
+    for key in ("one_minus_global_cos", "one_minus_median_cos"):
+        ratio = out["bf16"][key] / out["cpu_bf16"][key]
+        out["bf16"][key + "_ratio"] = ratio
+        print(f"train: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} (limit {BF16_COS_RATIO:g})")
+        check(bool(np.isfinite(ratio)) and ratio <= BF16_COS_RATIO,
+              f"card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's bf16 ({key})")
+    for tag, limits in TRAIN_LIMITS.items():
+        for key, lim in limits.items():
+            v = out[tag][key]
+            check(bool(np.isfinite(v)) and v <= lim,
+                  f"card {tag} train step differs from the CPU: {key} {v:.3e} > {lim:g}")
+    return out
+
+
+def learning_check(config, anchors):
+    """20 steps on one fixed batch of 16 on the card; returns the losses,
+    the synchronized step time of steps 6-20 and the pipeline."""
+    pipe = trainer(seeded_net(config, anchors, torch.bfloat16, "cuda"), config)
+    batch = [torch.from_numpy(a).cuda() for a in train_batch(config, TRAIN_BATCH)]
+    losses = []
+    for i in range(LEARN_STEPS):
+        if i == 5:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        losses.append(pipe.train_step(*batch)["aggregate_loss"].detach())
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / (LEARN_STEPS - 5) * 1e3
+    losses = torch.stack(losses).tolist()
+    print(f"train: {LEARN_STEPS} steps on one batch of {TRAIN_BATCH}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; fixed-batch step {step_ms:.3f} ms = "
+          f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s (host clock, synchronized, steps 6-20, "
+          f"no loader)")
+    check(all(np.isfinite(losses)), f"non-finite loss while learning: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall in {LEARN_STEPS} steps: {losses}")
+    return losses, step_ms, (pipe, batch)
+
+
+def profile_train(pipe, batch, step_ms, path):
+    """Device time of 3 fixed-batch train steps by op; its sum over the
+    steps' time without the profiler is the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iters = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            pipe.train_step(*batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3 / iters
+    n_kernels = sum(e.count for e in events
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / iters
+    table = events.table(sort_by="self_cuda_time_total", row_limit=30)
+    with open(path, "w") as f:
+        f.write(table)
+    print(table)
+    print(f"profile: train step at batch {TRAIN_BATCH}: device busy {busy_ms:.3f} ms per step = "
+          f"{busy_ms / step_ms:.1%} of the {step_ms:.3f} ms step without the profiler; "
+          f"{n_kernels:.0f} device kernels per step")
+    return dict(busy_ms=busy_ms, busy_share=busy_ms / step_ms, kernels_per_step=n_kernels)
+
+
+def serve_trained(root, config):
+    """best_model/ through run_detection_inference on 8 valid images, with
+    both kernel counters read around it."""
+    from vision_conglomerate_torch.infer.runner import run_detection_inference
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
+    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
+    from vision_conglomerate_torch.utils import load_yaml
+
+    best = os.path.join(root, "saved_model/detection/best_model")
+    imgs = os.path.join(root, "serve_imgs")
+    os.makedirs(imgs)
+    for i in range(N_IMAGES):
+        name = f"img_{i:03d}.jpg"
+        os.link(os.path.join(root, "data", "valid", name), os.path.join(imgs, name))
+    matmul_bias_act.launches = 0
+    conv3x3_bias_act.launches = 0
+    out = run_detection_inference(
+        imgs, os.path.join(best, "DetectionNet.ckpt.tar"),
+        load_yaml(os.path.join(best, "config", "config.yaml")), batch_size=BATCH,
+        score_threshold=0.01, with_summary=True, storage_path=os.path.join(root, "served"),
+        device="cuda")
+    torch.cuda.synchronize()
+    launches = {"matmul": matmul_bias_act.launches, "conv3x3": conv3x3_bias_act.launches}
+    files = sorted(os.listdir(out))
+    print(f"train: served the trained best_model on {N_IMAGES} images; launches {launches}")
+    for route, n in launches.items():
+        check(n > 0, f"the {route} kernel never launched serving the trained checkpoint")
+    check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
+          f"outputs of the trained checkpoint missing: {files}")
+    return launches
+
+
+def train_phase(root, out_dir, profile):
+    from vision_conglomerate_torch.utils import load_yaml
+
+    config, config_path, anchors_path = write_train_data(root)
+    pipe, seconds, peak = run_train_cli(root, config, config_path, anchors_path)
+    check_train_artifacts(root, pipe)
+    last = pipe._train_metrics[-1]
+    steps = -(-N_TRAIN // TRAIN_BATCH)
+    step_ms = TRAIN_BATCH / last["images_per_sec"] * 1e3
+    print(f"train: train_det.run, {TRAIN_EPOCHS} epochs of {steps} steps at batch {TRAIN_BATCH}, "
+          f"640x640, bf16: {seconds:.2f} s in all; epoch 2: {step_ms:.3f} ms/step = "
+          f"{last['images_per_sec']:.1f} images/s (host clock, synchronized, loader included); "
+          f"peak memory allocated {peak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(m['aggregate_loss'], 4) for m in pipe._train_metrics]}")
+    anchors = load_yaml(anchors_path)["anchors"]
+    parity = card_vs_cpu_step(config, anchors)
+    losses, fixed_ms, (lpipe, batch) = learning_check(config, anchors)
+    prof = (profile_train(lpipe, batch, fixed_ms, os.path.join(out_dir, "train_profile.txt"))
+            if profile else None)
+    del lpipe, batch
+    launches = serve_trained(root, config)
+    return dict(cli_seconds=seconds, epoch2_step_ms=step_ms,
+                epoch2_images_per_s=last["images_per_sec"], peak_bytes=peak,
+                train_metrics=pipe._train_metrics, eval_metrics=pipe._eval_metrics,
+                card_vs_cpu=parity, learning_losses=losses, fixed_batch_step_ms=fixed_ms,
+                profile=prof, trained_serve_launches=launches)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="write a torch.profiler table of 3 serve forwards")
+                        help="write torch.profiler tables of 3 serve forwards and 3 train steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script runs on the GPU only")
@@ -462,9 +826,11 @@ def main():
         per_batch = sum(1 for s in seen if s[0] == route)
         check(n == n_batches * per_batch,
               f"{route}: {n} launches in {n_batches} batches, the forward routes {per_batch}")
+    with tempfile.TemporaryDirectory() as root:
+        train = train_phase(root, out_dir, args.profile)
     rows, summary = kernel_phase(seen, launches)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, launches=launches, serve_seconds=seconds,
+        json.dump(dict(card=card, launches=launches, train=train, serve_seconds=seconds,
                        images=N_IMAGES, batch=BATCH, warm_images_per_s=warm,
                        warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many},
                        forward_ms_per_batch=fwd_ms, host=host,

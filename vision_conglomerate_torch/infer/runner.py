@@ -27,6 +27,7 @@ from PIL import Image
 from ..data.inference import InferenceImgDataset, SingleImgSample
 from ..device import resolve_device
 from ..models.detection import DetectionNet
+from ..nn.blocks import cast_conv_weights
 from ..nn.reparam import deploy_transform
 from ..ops.postprocess import postprocess_detections
 from ..train.checkpoint import load_checkpoint
@@ -68,7 +69,7 @@ def load_detection_model(weights_path: str, model_config: Dict[str, Any],
     model = DetectionNet(num_classes, model_config, num_keypoints=num_keypoints,
                          deploy=fuse_repvgg, folded=use_reparam, dtype=dtype, device=dev)
     model.load_state_dict(state)
-    return model.eval(), num_classes
+    return cast_conv_weights(model, dtype).eval(), num_classes
 
 
 @torch.no_grad()

@@ -18,7 +18,6 @@ import torch
 import torch.nn as nn
 
 from .. import registry
-from ..nn.blocks import cast_conv_weights
 
 ZERO_ANCHORS = {
     "sm": ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0)),
@@ -71,8 +70,9 @@ class DetectionNet(nn.Module):
     `config` is the `model_config` dict; its backbone, neck and head names
     resolve through `registry`. `deploy=True` builds fused RepVGG blocks and
     `folded=True` BN-folded convs (the serve form; weights from
-    `nn.reparam.deploy_transform`). Conv weights are kept in `dtype` and
-    channels_last, everything else in f32.
+    `nn.reparam.deploy_transform`). Parameters are f32 and the network
+    computes in `dtype`; the serve form casts its conv weights to `dtype`
+    (`nn.blocks.cast_conv_weights`, applied by `infer/runner.py`).
     """
 
     def __init__(self, num_classes: int, config: Dict[str, Any],
@@ -105,7 +105,6 @@ class DetectionNet(nn.Module):
         self.head = nn.ModuleList([
             head_spec.cls(c, num_classes, num_anchors=self.num_anchors, **head_cfg, **kw)
             for c in neck_out[1:]])
-        cast_conv_weights(self, dtype)
 
     def forward(self, x: torch.Tensor, inference: bool = False,
                 og_size: Optional[Tuple[int, int]] = None):

@@ -16,10 +16,12 @@ folded stride-1 3x3 conv and every `conv_reparam` on `ops.conv3x3`. The
 6x6/s2 stem, the 3x3/s2 downsamples, pooling, resizes and the head's plain
 1x1 layers stay on PyTorch ops.
 
-Numerics follow the JAX package: BatchNorm computes in f32 (momentum 0.1,
-eps 1e-5); conv weights may be cast to a compute dtype
-(`cast_conv_weights`) while biases and BatchNorm stay f32; the kernels apply
-bias and activation to their f32 accumulator.
+Numerics follow the JAX package: parameters are f32 and each conv casts its
+weight and bias to the activations' dtype at the call, so gradients land in
+f32; BatchNorm computes in f32 with flax's running-stat rule (`BatchNorm2d`).
+The serve form stores conv weights in the compute dtype instead
+(`cast_conv_weights`); the kernels apply bias and activation to their f32
+accumulator.
 """
 import math
 from typing import Optional, Tuple, Union
@@ -54,9 +56,10 @@ def depth_round(x: float, depth_multiple: float) -> int:
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """`conv` on x in x's dtype (the bias may be kept in f32)."""
+    """`conv` on x in x's dtype. The casts of weight and bias are
+    differentiable, so f32 parameters get f32 gradients."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight, bias, conv.stride, conv.padding)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +92,45 @@ def conv_bias_act(x: torch.Tensor, conv: nn.Conv2d, activation: Optional[str]) -
     return fn(_nhwc(x), w_hwio, conv.bias, activation).permute(0, 3, 1, 2)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's running statistics (momentum 0.1, eps 1e-5).
+
+    Train mode normalises with the biased batch statistics, as
+    nn.BatchNorm2d does, and updates `running_mean` and `running_var` as flax
+    nn.BatchNorm does: new = 0.9 old + 0.1 batch, where batch is the BIASED
+    variance (nn.BatchNorm2d would take the unbiased one). Eval mode
+    normalises with the running statistics. The state_dict keys are
+    nn.BatchNorm2d's; `num_batches_tracked` is not advanced (nothing reads
+    it, and checkpoints drop it).
+
+    The batch statistics come out of F.batch_norm itself, run with momentum
+    1 into two scratch buffers, so the train forward stays one fused
+    normalisation plus three small updates.
+    """
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__(num_features, device=device)
+        self.register_buffer("_batch_mean", torch.zeros(num_features, device=device),
+                             persistent=False)
+        self.register_buffer("_batch_var", torch.ones(num_features, device=device),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        # momentum 1: the scratch buffers become the batch mean and the
+        # unbiased batch variance
+        y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight, self.bias,
+                         True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(self._batch_mean, self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                self._batch_var, alpha=self.momentum * (n - 1) / n)
+        return y
+
+
 class ConvBNorm(nn.Module):
     """Conv2d + BatchNorm (f32) + activation; `folded=True` is the deploy
     form, whose conv carries the folded BatchNorm and always has a bias."""
@@ -105,7 +147,7 @@ class ConvBNorm(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, k, _pair(stride), p,
                               bias=use_bias or folded, device=device)
         if not folded:
-            self.norm = nn.BatchNorm2d(out_channels, device=device)
+            self.norm = BatchNorm2d(out_channels, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded:
@@ -144,7 +186,7 @@ class RepVGGBlock(nn.Module):
         self.conv1x1 = ConvBNorm(in_channels, out_channels, 1, 1, 0, use_bias=False,
                                  activation=branch_activation, folded=folded, device=device)
         if in_channels == out_channels:
-            self.identity = nn.BatchNorm2d(in_channels, device=device)
+            self.identity = BatchNorm2d(in_channels, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.deploy:
@@ -378,9 +420,10 @@ def randomize_batchnorm_(module: nn.Module, generator: torch.Generator) -> nn.Mo
 
 
 def cast_conv_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Serving form of the weights: every conv weight in `dtype` and
-    channels_last (the layout the kernels read without a copy); biases,
-    BatchNorm and other parameters stay f32."""
+    """Serving form of the weights (`infer/runner.py` applies it; training
+    keeps f32 parameters): every conv weight in `dtype` and channels_last
+    (the layout the kernels read without a copy); biases, BatchNorm and
+    other parameters stay f32."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Conv2d):

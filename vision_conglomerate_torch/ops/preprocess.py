@@ -1,4 +1,5 @@
-"""Input preprocessing on the device."""
+"""Input preprocessing on the device: normalisation and the train step's
+random horizontal flip."""
 import torch
 
 
@@ -6,3 +7,16 @@ def normalize_images(imgs_u8: torch.Tensor, dtype: torch.dtype = torch.float32) 
     """uint8 images -> [0, 1] floats (the /255 of the JAX package's
     ops/preprocess.normalize_images)."""
     return imgs_u8.to(dtype) / torch.tensor(255.0, dtype=dtype, device=imgs_u8.device)
+
+
+def random_hflip(generator: torch.Generator, imgs: torch.Tensor, labels: torch.Tensor,
+                 prob: float = 0.5):
+    """Flip each (B, H, W, C) image left-right with probability `prob`, and
+    mirror its labels' x (labels (B, M, 5+) [cls, x, y, w, h, ...],
+    normalised). The draws come from `generator`, on the images' device."""
+    if labels.shape[-1] > 5:
+        raise NotImplementedError("keypoint labels are not in the port yet (ROADMAP §A.13)")
+    flip = torch.rand(imgs.shape[0], generator=generator, device=imgs.device) < prob
+    imgs = torch.where(flip[:, None, None, None], imgs.flip(2), imgs)
+    x = torch.where(flip[:, None], 1.0 - labels[..., 1], labels[..., 1])
+    return imgs, torch.cat([labels[..., :1], x[..., None], labels[..., 2:]], dim=-1)

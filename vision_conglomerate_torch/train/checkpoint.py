@@ -6,6 +6,13 @@ NETWORK_PARAMS is the flax variables tree {"params": ..., "batch_stats":
 other; reading needs numpy only. `weights.flax_to_state_dict` and
 `weights.state_dict_to_flax` convert NETWORK_PARAMS to and from a port
 `state_dict`. The JAX package's orbax format is not read here.
+
+A JAX snapshot pickles its OPTIMIZER_PARAMS as optax named tuples. Loading
+never imports optax, jax or flax: their classes come back as plain named
+tuples of this module's making (`ForeignState`), which keep the class name
+and the fields in order. A port snapshot keeps its torch optimizer state
+under TORCH_OPTIMIZER_PARAMS (numpy leaves), a key the JAX package does not
+read.
 """
 import os
 import pickle
@@ -13,6 +20,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "optax", "chex")
 
 
 def _to_numpy(tree: Any) -> Any:
@@ -22,9 +31,37 @@ def _to_numpy(tree: Any) -> Any:
         return type(tree)(_to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
-    if isinstance(tree, np.ndarray):
-        return tree
     return tree
+
+
+def to_torch(tree: Any) -> Any:
+    """numpy leaves of a nested dict/list/tuple -> CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.array(tree))
+    return tree
+
+
+class ForeignState(tuple):
+    """An instance of a pickled class of the JAX stack, as a tuple of its
+    fields; `module` and the class name say what it was."""
+
+    module = ""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] not in FOREIGN_PACKAGES:
+            return super().find_class(module, name)
+        if name == "FrozenDict":
+            return dict
+        return type(name, (ForeignState,), {"module": module})
 
 
 def save_checkpoint(path: str, manifest: Dict[str, Any]):
@@ -54,6 +91,5 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     this project wrote."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"Checkpoint path {path} does not exist")
-    path = resolve_checkpoint_path(path)
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    with open(resolve_checkpoint_path(path), "rb") as f:
+        return _Unpickler(f).load()
