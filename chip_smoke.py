@@ -33,28 +33,58 @@ Phases (any failure exits non-zero; nothing is caught):
    for the matmul), the multiples of the bound and of the library time,
    and the output tile the C launcher chose.
 
-4. train: 64 train and 16 valid synthetic 640x640 JPEGs (2-6 boxes each,
+4. video: a 1280x720 clip of 48 frames (two shapes sliding on disjoint
+   lanes over a fixed textured background, from SEED) is written with cv2
+   (mp4v) and served through `run_detection_inference` on the card at
+   batch 4 with frame_skips 0 and 1 (ByteTrack, video.mp4, output.csv).
+   The checkpoint is the serve phase's, with its conf and class layers
+   rescaled on four of the clip's frames so that scores spread over
+   ByteTrack's bands (the random net's scores all sit below its 0.35
+   activation threshold). Both kernel counters are zeroed before and must
+   have risen after; video.mp4 must hold 48 and 24 frames and output.csv
+   track ids. The prefetched output must equal the serial one
+   (VCT_INFER_PREFETCH=0). Reported: the share of the card's CSV rows that
+   agree with the clip served in f32 on the CPU (same frame, track id and
+   class, X/Y/W/H within 1 px; bf16 moves scores near a band edge, so it
+   is not gated), and warm frames/s with and without the prefetch thread,
+   (48 - 16) frames over the difference of a 48- and a 16-frame call.
+5. train: 64 train and 16 valid synthetic 640x640 JPEGs (2-6 boxes each,
    YOLO labels, 80 classes) are written from SEED in a temp dir, with temp
    copies of the shipped config and anchors. The port's train_det entry
    point (`run`) trains the shipped model (full width, bf16 compute, f32
-   parameters) at batch 16 for 2 epochs with an eval each epoch and the lr
-   schedule. Each epoch's mean loss must be finite (so every step's is),
-   and the metrics CSVs, a snapshot and best_model/ (f32 conv kernels) must
-   exist. The second epoch gives the train step time (host clock, the
-   epoch's wall time over its steps, loader included) and images/s.
-5. card vs CPU: one train step of one seeded net on one batch of 2 train
+   parameters) at batch 16 for 2 epochs with an eval and --map_eval each
+   epoch and the lr schedule. Each epoch's mean loss must be finite (so
+   every step's is), and the metrics CSVs (eval_metrics.csv with a map50
+   column), a snapshot and best_model/ (f32 conv kernels) must exist. The
+   second epoch gives the train step time (host clock, the epoch's wall
+   time over its steps, loader included) and images/s.
+6. card vs CPU: one train step of one seeded net on one batch of 2 train
    images, on the card in f32 and in bf16 against the CPU in f32, by the
    loss (relative), the gradient of every parameter (cosine; the conv
    biases in front of a train-mode BatchNorm have no gradient in exact
    arithmetic and are skipped) and the BatchNorm running statistics after
    the step (max |card - cpu|), within TRAIN_LIMITS; the card's bf16
    gradients are held to the CPU's own bf16 step (BF16_COS_RATIO).
-6. learning: 20 steps on one fixed batch of 16 on the card; the last loss
+7. learning: 20 steps on one fixed batch of 16 on the card; the last loss
    must be below the first. Steps 6-20 give the step time without the
    loader (host clock, synchronized).
-7. serve what was trained: best_model/ through `run_detection_inference` on
+8. serve what was trained: best_model/ through `run_detection_inference` on
    8 of the valid images; both kernel counters are zeroed before and must
    have risen after, and output.csv and the images must be written.
+9. eval: the eval_det entry point on best_model/ over the 16 valid images,
+   and on the net of phase 7, taken on to EVAL_LEARN_STEPS steps and saved
+   as a checkpoint, over the 16 images it learned (so that mAP@50 is not
+   zero), each on the card (deploy form, bf16,
+   both kernels: the counters must rise) and on the CPU (f32, plain
+   versions); the JSON line must have the JAX CLI's keys and |mAP@50 card
+   - cpu| <= EVAL_MAP50_LIMIT.
+10. remat: one seeded net at the shipped config takes one train step on 32
+   train images at 640x640 in bf16 with `remat` off and one with it on,
+   from the same state. The loss (relative), the gradients (1 - lowest
+   cosine) and the BatchNorm running statistics (max |d|) must agree
+   within the f32 limits of TRAIN_LIMITS, and remat's peak memory
+   allocated must be lower. Both peaks and both step times (3 more steps
+   each, host clock, synchronized) are printed.
 With --profile, 3 fixed-batch train steps are profiled too: device-busy
 share and the top device ops (chiprun_out/train_profile.txt).
 
@@ -82,6 +112,11 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 NUM_CLASSES = 80
 N_IMAGES = 8
+VIDEO_FRAMES, VIDEO_SHORT = 48, 16
+VIDEO_FPS = 30
+VIDEO_HW = (720, 1280)
+# the video runs: the CLI's score threshold, at most 20 boxes per frame
+VIDEO_KW = dict(batch_size=4, score_threshold=0.3, max_detections=20, with_summary=True)
 WARM_IMAGES = 32
 BATCH = 4
 SEED = 0
@@ -108,10 +143,23 @@ TRAIN_LIMITS = {
     "bf16": {"loss_rel": 4.5e-3, "bn_stats": 0.27},
 }
 BF16_COS_RATIO = 3.0
+# |mAP@50 card bf16 - cpu f32| of eval_det, about 3x the larger of the two
+# readings on the learned net, 0.00769 and 0.0312 (NVIDIA H100 80GB HBM3,
+# 700.00 W). The learned images hold about one box of each class, so a
+# class's AP is about 1 / the rank of its one hit: one hit a rank lower
+# moves mAP@50 by about 0.008
+EVAL_MAP50_LIMIT = 0.1
+# the root eval_det.py's JSON keys for a model without keypoints
+EVAL_KEYS = ["map50", "iou_threshold", "ap_per_class", "num_gt_per_class", "num_images",
+             "weights", "data_dir", "quantize"]
+REMAT_BATCH = 32
 TRAIN_BATCH = 16
 TRAIN_EPOCHS = 2
 N_TRAIN, N_VALID = 64, 16
 LEARN_STEPS = 20
+# the learning phase's net goes on to this many steps before eval_det
+# scores it on the images it learned
+EVAL_LEARN_STEPS = 100
 
 KERNELS = {
     "matmul": dict(name="matmul_bias_act", route="cuda",
@@ -168,7 +216,8 @@ def build_kernels():
 
 
 def make_inputs(root: str):
-    """Checkpoint, config and images of the serve phase, from SEED."""
+    """Checkpoint, config and images of the serve phase, from SEED, and the
+    train-form net the checkpoint holds (on the CPU)."""
     from vision_conglomerate_torch.models.detection import DetectionNet
     from vision_conglomerate_torch.nn.blocks import init_weights_, randomize_batchnorm_
     from vision_conglomerate_torch.train.checkpoint import save_checkpoint
@@ -196,7 +245,7 @@ def make_inputs(root: str):
         Image.fromarray(img).save(path)
         if i < N_IMAGES:
             os.link(path, os.path.join(img_dirs[N_IMAGES], f"img_{i:02d}.png"))
-    return config, ckpt, img_dirs
+    return config, ckpt, img_dirs, net
 
 
 def serve(config, ckpt, img_dir, storage):
@@ -454,6 +503,183 @@ def profile_forward(forward, fwd_ms, path):
           f"profiler ({wall_ms / iters:.3f} ms with it)")
 
 
+def clip_frame(t: int, background: np.ndarray) -> np.ndarray:
+    """Frame t of the clip: a square slides right along y=240 and a disk
+    slides left along y=500, 20 px a frame, over a fixed background."""
+    img = background.copy()
+    x0 = 100 + 20 * t
+    img[180:300, x0:x0 + 120] = (230, 60, 40)
+    yy, xx = np.ogrid[0:VIDEO_HW[0], 0:VIDEO_HW[1]]
+    img[(yy - 500) ** 2 + (xx - (1180 - 20 * t)) ** 2 <= 60 ** 2] = (40, 220, 60)
+    return img
+
+
+def write_clips(root):
+    """The first VIDEO_FRAMES and VIDEO_SHORT frames of the clip as mp4v
+    files, and four of its frames (RGB) for the head's rescale."""
+    import cv2
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:VIDEO_HW[0], 0:VIDEO_HW[1]]
+    background = np.stack([60 + 40 * np.sin(xx / 90.0), 110 + 30 * np.cos(yy / 70.0),
+                           70 + 20 * np.sin((xx + yy) / 150.0)], axis=-1)
+    background = np.clip(background + rng.normal(0, 8, background.shape), 0, 255).astype(np.uint8)
+    paths = {}
+    for n in (VIDEO_FRAMES, VIDEO_SHORT):
+        paths[n] = os.path.join(root, f"clip{n}.mp4")
+        writer = cv2.VideoWriter(paths[n], cv2.VideoWriter_fourcc(*"mp4v"), VIDEO_FPS,
+                                 (VIDEO_HW[1], VIDEO_HW[0]))
+        check(writer.isOpened(), "cv2 cannot write mp4v video on this machine")
+        for t in range(n):
+            writer.write(cv2.cvtColor(clip_frame(t, background), cv2.COLOR_RGB2BGR))
+        writer.release()
+    samples = [clip_frame(t, background) for t in (0, 16, 32, VIDEO_FRAMES - 1)]
+    return paths, samples
+
+
+def tracking_checkpoint(root, config, net, frames):
+    """The serve-phase net with its conf and class logits standardised on
+    `frames` (per head and output channel: conf mean -3 and std 2, class
+    mean 0 and std 2; train form, f32, on the card), as a checkpoint. The
+    random net's logits stay within +-0.3, so its scores never reach
+    ByteTrack's activation threshold (0.35) and nothing would be tracked."""
+    import cv2
+    from vision_conglomerate_torch.train.checkpoint import save_checkpoint
+    from vision_conglomerate_torch.weights import state_dict_to_flax
+
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    x = np.stack([cv2.resize((f / 255.0).astype(np.float32), img_wh,
+                             interpolation=cv2.INTER_LINEAR) for f in frames])
+    net = net.cuda().eval()
+    feats, hooks = {}, []
+    for i, head in enumerate(net.head):
+        for key in ("regression_fmap_layer", "classification_fmap_layer"):
+            hooks.append(getattr(head, key).register_forward_hook(
+                lambda m, a, out, k=(key, i): feats.__setitem__(k, out)))
+    with torch.no_grad():
+        net(torch.from_numpy(x).cuda().permute(0, 3, 1, 2))
+        for h in hooks:
+            h.remove()
+        for i, head in enumerate(net.head):
+            for layer, key, mean in ((head.conf_layer, "regression_fmap_layer", -3.0),
+                                     (head.cls_layer, "classification_fmap_layer", 0.0)):
+                z = F.conv2d(feats[(key, i)], layer.weight, layer.bias)
+                gain = 2.0 / z.std(dim=(0, 2, 3))
+                layer.bias.copy_((layer.bias - z.mean(dim=(0, 2, 3))) * gain + mean)
+                layer.weight.mul_(gain[:, None, None, None])
+    ckpt = os.path.join(root, "tracking", "DetectionNet.ckpt.tar")
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
+                           "NETWORK_PARAMS": state_dict_to_flax(net.cpu().state_dict())})
+    return ckpt
+
+
+def serve_video(clip, ckpt, config, storage, device="cuda", **kw):
+    """One run_detection_inference call on a clip; (host-clock seconds,
+    output dir, output.csv as a DataFrame)."""
+    import pandas as pd
+    from vision_conglomerate_torch.infer.runner import run_detection_inference
+
+    t0 = time.time()
+    out = run_detection_inference(clip, ckpt, config, storage_path=storage, device=device,
+                                  **{**VIDEO_KW, **kw})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.time() - t0
+    csv = os.path.join(out, "output.csv")
+    return seconds, out, (pd.read_csv(csv) if os.path.isfile(csv) else None)
+
+
+def video_frames(out) -> int:
+    import cv2
+
+    cap = cv2.VideoCapture(os.path.join(out, "video.mp4"))
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+
+
+def csv_agreement(got, want, keys=("frame", "track_id", "class")) -> float:
+    """Rows that have a row with the same `keys` in the other table with X,
+    Y, W, H within 1 (the smaller of the two sides' counts), over the
+    larger table's rows."""
+    merged = got.reset_index().merge(want.reset_index(), on=list(keys), suffixes=("", "_ref"))
+    close = np.ones(len(merged), bool)
+    for c in ("X", "Y", "W", "H"):
+        close &= (merged[c] - merged[c + "_ref"]).abs().to_numpy() <= 1
+    merged = merged[close]
+    matched = min(merged["index"].nunique(), merged["index_ref"].nunique())
+    return float(matched) / max(len(got), len(want), 1)
+
+
+def video_phase(root, config, net):
+    """The clip served on the card through both kernels (frame_skips 0 and
+    1), against the serial path and the CPU; warm frames/s with and without
+    the prefetch thread."""
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
+    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
+
+    clips, samples = write_clips(root)
+    ckpt = tracking_checkpoint(root, config, net, samples)
+    clip = clips[VIDEO_FRAMES]
+    matmul_bias_act.launches = 0
+    conv3x3_bias_act.launches = 0
+    runs = {skips: serve_video(clip, ckpt, config, os.path.join(root, f"video_skip{skips}"),
+                               frame_skips=skips) for skips in (0, 1)}
+    launches = {"matmul": matmul_bias_act.launches, "conv3x3": conv3x3_bias_act.launches}
+    print(f"video: {VIDEO_FRAMES} frames 1280x720 at batch {VIDEO_KW['batch_size']} through "
+          f"run_detection_inference, frame_skips 0 and 1: {runs[0][0]:.2f} s and "
+          f"{runs[1][0]:.2f} s (first calls); launches {launches}")
+    for route, n in launches.items():
+        check(n > 0, f"the {route} kernel never launched serving the video")
+    stats = {}
+    for skips, want_frames in ((0, VIDEO_FRAMES), (1, VIDEO_FRAMES // 2)):
+        _, out, df = runs[skips]
+        frames = video_frames(out)
+        check(frames == want_frames, f"video.mp4 has {frames} frames, want {want_frames} "
+                                     f"(frame_skips {skips})")
+        check(df is not None and "track_id" in df.columns and len(df) > 0,
+              f"output.csv of the video (frame_skips {skips}) has no tracks")
+        stats[skips] = dict(rows=len(df), track_ids=int(df["track_id"].nunique()),
+                            frames_with_tracks=int(df["frame"].nunique()))
+        print(f"video: frame_skips {skips}: video.mp4 {frames} frames, output.csv {len(df)} rows, "
+              f"{stats[skips]['track_ids']} track ids over {stats[skips]['frames_with_tracks']} "
+              f"frames")
+    card = runs[0][2]
+    _, _, cpu = serve_video(clip, ckpt, config, os.path.join(root, "video_cpu"), device="cpu")
+    agree = csv_agreement(card, cpu)
+    boxes_agree = csv_agreement(card, cpu, keys=("frame", "class"))
+    print(f"video: card bf16 vs cpu f32, frame_skips 0: {agree:.4f} of the rows agree "
+          f"(frame, track id, class, box), {boxes_agree:.4f} without the track id "
+          f"({len(card)} card rows, {len(cpu)} cpu rows; reported, not gated)")
+    # warm frames/s, prefetch (1) and serial (0) in turns
+    times = {"1": [], "0": []}
+    prev = os.environ.get("VCT_INFER_PREFETCH")
+    for mode in ("1", "0", "0", "1"):
+        os.environ["VCT_INFER_PREFETCH"] = mode
+        try:
+            t_short, _, _ = serve_video(clips[VIDEO_SHORT], ckpt, config,
+                                        os.path.join(root, f"warm{mode}_{len(times[mode])}s"))
+            t_long, _, df = serve_video(clip, ckpt, config,
+                                        os.path.join(root, f"warm{mode}_{len(times[mode])}l"))
+        finally:
+            if prev is None:
+                del os.environ["VCT_INFER_PREFETCH"]
+            else:
+                os.environ["VCT_INFER_PREFETCH"] = prev
+        check(df.equals(card), f"VCT_INFER_PREFETCH={mode}: output.csv differs from the "
+                               f"prefetched first run")
+        times[mode].append((VIDEO_FRAMES - VIDEO_SHORT) / (t_long - t_short))
+    print(f"video: warm frames/s, (48 - 16) frames over the difference of two calls (host "
+          f"clock): prefetch {times['1'][0]:.3f} and {times['1'][1]:.3f}, serial "
+          f"(VCT_INFER_PREFETCH=0) {times['0'][0]:.3f} and {times['0'][1]:.3f}; the serial "
+          f"output.csv equals the prefetched one")
+    return dict(launches=launches, first_call_seconds={k: v[0] for k, v in runs.items()},
+                runs=stats, cpu_agreement=agree, cpu_box_agreement=boxes_agree,
+                cpu_rows=len(cpu),
+                warm_frames_per_s={"prefetch": times["1"], "serial": times["0"]})
+
+
 def write_train_data(root):
     """64 train and 16 valid 640x640 JPEGs with 2-6 filled boxes each and
     YOLO labels over 80 classes (every class present), plus temp copies of
@@ -504,7 +730,7 @@ def run_train_cli(root, config, config_path, anchors_path):
     args = argparse.Namespace(
         batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, checkpoint_interval=1, eval_interval=1,
         no_verbose=True, lr_schedule=True, lr_schedule_interval=1, use_ddp=False,
-        checkpoint_path="", profile_dir="", map_eval=False, lr=0.0, device="cuda")
+        checkpoint_path="", profile_dir="", map_eval=True, lr=0.0, device="cuda")
     cwd = os.getcwd()
     os.chdir(root)
     torch.cuda.reset_peak_memory_stats()
@@ -530,6 +756,13 @@ def check_train_artifacts(root, pipe):
                 "saved_model/detection/best_model/DetectionNet.ckpt.tar",
                 "saved_model/detection/best_model/config/config.yaml"):
         check(os.path.isfile(os.path.join(root, rel)), f"train artifact missing: {rel}")
+    import pandas as pd
+
+    evals = pd.read_csv(os.path.join(root, "metrics/detection/eval_metrics.csv"))
+    check("map50" in evals.columns and len(evals) == TRAIN_EPOCHS
+          and bool(np.isfinite(evals["map50"]).all()),
+          f"eval_metrics.csv of --map_eval: columns {list(evals.columns)}, {len(evals)} rows")
+    print(f"train: --map_eval mAP@50 per epoch {evals['map50'].tolist()} (eval_metrics.csv)")
     snaps = [f for _, _, fs in os.walk(os.path.join(root, "saved_model/detection/checkpoints"))
              for f in fs if f.endswith(".ckpt.tar")]
     check(len(snaps) == TRAIN_EPOCHS, f"snapshots: {snaps}")
@@ -745,6 +978,135 @@ def serve_trained(root, config):
     return launches
 
 
+def save_learned(root, config, net):
+    """The learning phase's net (EVAL_LEARN_STEPS steps on the first
+    TRAIN_BATCH train images) as a checkpoint beside its config, and those
+    images with their labels in data/learned/; returns (checkpoint, data
+    dir)."""
+    from vision_conglomerate_torch.train.checkpoint import save_checkpoint
+    from vision_conglomerate_torch.utils import save_yaml
+    from vision_conglomerate_torch.weights import state_dict_to_flax
+
+    ckpt = os.path.join(root, "learned", "DetectionNet.ckpt.tar")
+    state = {k: v.float().cpu() for k, v in net.state_dict().items()}
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
+                           "NETWORK_PARAMS": state_dict_to_flax(state)})
+    os.makedirs(os.path.join(root, "learned", "config"))
+    save_yaml(config, os.path.join(root, "learned", "config", "config.yaml"))
+    src, dst = os.path.join(root, "data", "train"), os.path.join(root, "data", "learned")
+    os.makedirs(dst)
+    for name in sorted(f for f in os.listdir(src) if f.endswith(".jpg"))[:TRAIN_BATCH]:
+        for ext in (".jpg", ".txt"):
+            stem = name[:-4] + ext
+            os.link(os.path.join(src, stem), os.path.join(dst, stem))
+    return ckpt, dst
+
+
+def eval_phase(root, learned):
+    """eval_det on best_model/ over the valid images and on the learning
+    phase's net over the images it learned (`learned`: checkpoint, data
+    dir), each on the card (counters zeroed before and read after) and on
+    the CPU."""
+    import contextlib
+    import io
+
+    from vision_conglomerate_torch import eval_det
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
+    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
+
+    runs = {"best_model": (os.path.join(root, "saved_model/detection/best_model/"
+                                              "DetectionNet.ckpt.tar"),
+                           os.path.join(root, "data", "valid")),
+            "learned": learned}
+    res = {}
+    for tag, (weights, data_dir) in runs.items():
+        out, seconds = {}, {}
+        for dev in ("cuda", "cpu"):
+            argv = ["--weights_path", weights, "--data_dir", data_dir, "--device", dev]
+            if dev == "cuda":
+                matmul_bias_act.launches = 0
+                conv3x3_bias_act.launches = 0
+            printed = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(printed):
+                out[dev] = eval_det.run(eval_det.build_parser().parse_args(argv))
+            seconds[dev] = time.time() - t0
+            if dev == "cuda":
+                launches = {"matmul": matmul_bias_act.launches,
+                            "conv3x3": conv3x3_bias_act.launches}
+            line = json.loads(printed.getvalue().strip().splitlines()[-1])
+            check(line == out[dev] and list(line) == EVAL_KEYS,
+                  f"eval_det ({tag}, {dev}) printed {list(line)}, want the keys {EVAL_KEYS}")
+        d = abs(out["cuda"]["map50"] - out["cpu"]["map50"])
+        print(f"eval: eval_det on {tag} over {out['cuda']['num_images']} images: mAP@50 card "
+              f"bf16 {out['cuda']['map50']} ({seconds['cuda']:.2f} s), cpu f32 "
+              f"{out['cpu']['map50']} ({seconds['cpu']:.2f} s); |d| {d:.3g} (limit "
+              f"{EVAL_MAP50_LIMIT:g}); launches {launches}")
+        for route, n in launches.items():
+            check(n > 0, f"the {route} kernel never launched in eval_det ({tag})")
+        check(d <= EVAL_MAP50_LIMIT, f"eval_det ({tag}) mAP@50 card vs cpu differs by {d:.3g}")
+        if tag == "learned":
+            check(out["cpu"]["map50"] > 0, "eval_det gives the learned net mAP@50 0 on the "
+                                           "images it learned")
+        res[tag] = dict(map50={k: v["map50"] for k, v in out.items()}, abs_diff=d,
+                        seconds=seconds, launches=launches,
+                        num_gt_per_class=out["cpu"]["num_gt_per_class"])
+    return res
+
+
+def remat_phase(config, anchors):
+    """One bf16 train step at batch REMAT_BATCH without and with remat from
+    one seeded state: step results within TRAIN_LIMITS["f32"], remat's peak
+    memory lower; then 3 more steps each for the step time."""
+    import copy
+    import gc
+
+    batch = [torch.from_numpy(a).cuda() for a in train_batch(config, REMAT_BATCH)]
+    cpu = seeded_net(config, anchors)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    skip = no_grad_biases(cpu)
+    res = {}
+    for remat in (False, True):
+        cfg = copy.deepcopy(config)
+        cfg["model_config"]["remat"] = remat
+        net = seeded_net(cfg, anchors, torch.bfloat16, "cuda", state)
+        pipe = trainer(net, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = pipe.train_step(*batch)["aggregate_loss"].item()
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.float().cpu() for n, p in net.named_parameters() if p.requires_grad}
+        stats = {n: b.float().cpu() for n, b in net.named_buffers() if "running_" in n}
+        t0 = time.time()
+        for _ in range(3):
+            pipe.train_step(*batch)
+        torch.cuda.synchronize()
+        res[remat] = dict(step=(loss, grads, stats), peak=peak,
+                          step_ms=(time.time() - t0) / 3 * 1e3)
+        del net, pipe
+    names = [n for n in res[False]["step"][1] if n not in skip]
+    cmp = compare_steps(res[True]["step"], res[False]["step"], names)
+    for remat in (False, True):
+        r = res[remat]
+        print(f"remat: train step at batch {REMAT_BATCH}, 640x640, bf16, remat {remat}: peak "
+              f"memory allocated {r['peak'] / 2 ** 30:.3f} GiB, {r['step_ms']:.3f} ms/step "
+              f"(steps 2-4, host clock, synchronized)")
+    print(f"remat: remat vs no remat, one step from one state: loss {cmp['loss']:.6f} vs "
+          f"{cmp['loss_ref']:.6f}, rel {cmp['loss_rel']:.3e}; 1 - gradient cosine: lowest "
+          f"{cmp['one_minus_min_cos']:.3e} ({cmp['worst_grad']}), median "
+          f"{cmp['one_minus_median_cos']:.3e}; BatchNorm running stats max |d| "
+          f"{cmp['bn_stats']:.3e}; gated in bf16 with the f32 limits {TRAIN_LIMITS['f32']}")
+    for key, lim in TRAIN_LIMITS["f32"].items():
+        check(bool(np.isfinite(cmp[key])) and cmp[key] <= lim,
+              f"the remat step differs from the plain step: {key} {cmp[key]:.3e} > {lim:g}")
+    check(res[True]["peak"] < res[False]["peak"],
+          f"remat's peak memory {res[True]['peak']} is not below {res[False]['peak']}")
+    return dict(compare=cmp, peak_bytes={str(k): v["peak"] for k, v in res.items()},
+                step_ms={str(k): v["step_ms"] for k, v in res.items()})
+
+
 def train_phase(root, out_dir, profile):
     from vision_conglomerate_torch.utils import load_yaml
 
@@ -764,13 +1126,18 @@ def train_phase(root, out_dir, profile):
     losses, fixed_ms, (lpipe, batch) = learning_check(config, anchors)
     prof = (profile_train(lpipe, batch, fixed_ms, os.path.join(out_dir, "train_profile.txt"))
             if profile else None)
+    for _ in range(EVAL_LEARN_STEPS - LEARN_STEPS):
+        lpipe.train_step(*batch)
+    learned = save_learned(root, config, lpipe.model)
     del lpipe, batch
     launches = serve_trained(root, config)
+    evaluated = eval_phase(root, learned)
+    remat = remat_phase(config, anchors)
     return dict(cli_seconds=seconds, epoch2_step_ms=step_ms,
                 epoch2_images_per_s=last["images_per_sec"], peak_bytes=peak,
                 train_metrics=pipe._train_metrics, eval_metrics=pipe._eval_metrics,
                 card_vs_cpu=parity, learning_losses=losses, fixed_batch_step_ms=fixed_ms,
-                profile=prof, trained_serve_launches=launches)
+                profile=prof, trained_serve_launches=launches, eval=evaluated, remat=remat)
 
 
 def main():
@@ -797,7 +1164,7 @@ def main():
     from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
 
     with tempfile.TemporaryDirectory() as root:
-        config, ckpt, img_dirs = make_inputs(root)
+        config, ckpt, img_dirs, net = make_inputs(root)
         matmul_bias_act.launches = 0
         conv3x3_bias_act.launches = 0
         seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "out"))
@@ -821,6 +1188,7 @@ def main():
             config, ckpt, img_dirs[N_IMAGES])
         if args.profile:
             profile_forward(forward, fwd_ms, os.path.join(out_dir, "serve_profile.txt"))
+        video = video_phase(root, config, net)
     n_batches = -(-N_IMAGES // BATCH)
     for route, n in launches.items():
         per_batch = sum(1 for s in seen if s[0] == route)
@@ -833,7 +1201,7 @@ def main():
         json.dump(dict(card=card, launches=launches, train=train, serve_seconds=seconds,
                        images=N_IMAGES, batch=BATCH, warm_images_per_s=warm,
                        warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many},
-                       forward_ms_per_batch=fwd_ms, host=host,
+                       forward_ms_per_batch=fwd_ms, host=host, video=video,
                        model_vs_cpu=model_stats, cases=rows, kernels=summary), f, indent=1)
     print(json.dumps({"kernels": summary}))
     print(f"card: {card}")

@@ -19,7 +19,8 @@ _PROBE = """
 import importlib, pkgutil, sys
 import vision_conglomerate_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["vision_conglomerate_torch.inference_det", "chip_smoke"]:
+for name in names + ["vision_conglomerate_torch.inference_det", "vision_conglomerate_torch.eval_det",
+                     "vision_conglomerate_torch.train_det", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad)

@@ -1,12 +1,14 @@
-"""Inference datasets for images, as in the JAX package's data/inference.py.
+"""Inference datasets for images and video, as in the JAX package's
+data/inference.py.
 
-Each item is (resized float image, original uint8 image), both HWC. The
-resize is plain bilinear with no letterboxing and no kept aspect ratio.
-Video datasets are not in the port yet (ROADMAP §A.9).
+Each item is (resized float image, original uint8 RGB image), both HWC.
+The resize is plain bilinear with no letterboxing and no kept aspect ratio.
+The image datasets are map-style; the video dataset is an iterable over
+the decoded frames.
 """
 import glob
 import os
-from typing import Sequence, Tuple
+from typing import Iterator, Sequence, Tuple
 
 import cv2
 import numpy as np
@@ -57,3 +59,38 @@ class InferenceImgDataset:
     def __getitem__(self, idx: int):
         og = load_rgb_image(self.img_files[idx])
         return resize_bilinear((og / 255.0).astype(np.float32), self.img_wh), og
+
+
+class InferenceVideoDataset:
+    """The frames of a video file (cv2.VideoCapture), keeping frame 0 and
+    every (frame_skips + 1)-th frame after it. A file cv2 cannot open
+    raises OSError."""
+
+    def __init__(self, video_path: str, img_wh: Tuple[int, int] = (640, 640),
+                 frame_skips: int = 0):
+        self.video_path = video_path
+        self.img_wh = img_wh
+        self.frame_skips = max(0, frame_skips)
+        self._open().release()  # fail here, before the serve loop writes anything
+
+    def _open(self) -> "cv2.VideoCapture":
+        cap = cv2.VideoCapture(self.video_path)
+        if not cap.isOpened():
+            cap.release()
+            raise OSError(f"cv2 cannot open the video {self.video_path}")
+        return cap
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        cap = self._open()
+        idx = 0
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                if idx % (self.frame_skips + 1) == 0:
+                    og = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                    yield resize_bilinear((og / 255.0).astype(np.float32), self.img_wh), og
+                idx += 1
+        finally:
+            cap.release()

@@ -2,11 +2,15 @@
 inference_det.py; `--device` defaults to `cuda`.
 
     python -m vision_conglomerate_torch.inference_det --path imgs/ --with_summary
+    python -m vision_conglomerate_torch.inference_det --path clip.mp4 --with_summary \
+        --fps 30 --frame_skips 1 --tracked_classes 0,2
 
 As in the JAX package's CLI, the config is
 saved_model/detection/best_model/config/config.yaml and the weights default
-to DetectionNet.ckpt.tar in saved_model/detection/best_model/. Video and
-`--quantize int8` are not in the port yet and raise.
+to DetectionNet.ckpt.tar in saved_model/detection/best_model/. A video
+(.mp4/.avi/.mkv) is tracked with ByteTrack and written as video.mp4 at
+`--fps`, keeping every (frame_skips + 1)-th frame. `--quantize int8` is not
+in the port yet and raises.
 """
 import argparse
 import logging
@@ -20,7 +24,7 @@ BEST_MODEL_PATH = "saved_model/detection/best_model/DetectionNet.ckpt.tar"
 
 def build_parser(default_weights: str = BEST_MODEL_PATH) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Detection Inference")
-    parser.add_argument("--path", type=str, metavar="", help="input path (image or folder of images)")
+    parser.add_argument("--path", type=str, metavar="", help="input path (image, folder of images or video)")
     parser.add_argument("--batch_size", type=int, default=32, metavar="", help="Inference batch size")
     parser.add_argument("--weights_path", type=str, default=default_weights, metavar="", help="saved model path")
     parser.add_argument("--dl_workers", type=int, default=0, metavar="", help="Number of dataloader workers")
@@ -57,8 +61,10 @@ def run(args, config_path: str) -> str:
         batch_size=args.batch_size,
         iou_threshold=args.iou_threshold,
         score_threshold=args.score_threshold,
+        fps=args.fps,
         with_summary=args.with_summary,
         tracked_classes=tracked,
+        frame_skips=args.frame_skips,
         box_allowance=args.box_allowance,
         save_og_size=args.save_og_size,
         use_reparam=not args.no_reparam,

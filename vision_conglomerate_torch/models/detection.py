@@ -70,7 +70,9 @@ class DetectionNet(nn.Module):
     `config` is the `model_config` dict; its backbone, neck and head names
     resolve through `registry`. `deploy=True` builds fused RepVGG blocks and
     `folded=True` BN-folded convs (the serve form; weights from
-    `nn.reparam.deploy_transform`). Parameters are f32 and the network
+    `nn.reparam.deploy_transform`). `config["remat"]` checkpoints the
+    backbone and neck stages in training (`nn.blocks.stage`); it changes
+    neither the parameters nor the outputs. Parameters are f32 and the network
     computes in `dtype`; the serve form casts its conv weights to `dtype`
     (`nn.blocks.cast_conv_weights`, applied by `infer/runner.py`).
     """
@@ -97,6 +99,11 @@ class DetectionNet(nn.Module):
         neck_cfg = registry.component_config(config, config["neck"])
         head_spec = registry.resolve(registry.HEADS, config["head"])
         head_cfg = registry.component_config(config, config["head"])
+        # model_config.remat reaches the backbone and neck unless their own
+        # config sets it, as in the JAX package
+        if config.get("remat"):
+            bb_cfg.setdefault("remat", True)
+            neck_cfg.setdefault("remat", True)
         kw = dict(folded=folded, device=device)
         self.backbone = bb_spec.cls(3, **bb_cfg, **kw)
         bb_out = bb_spec.out_channels(**bb_cfg)

@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import C3Module, ConvBNorm, channels8, depth_round
+from .blocks import C3Module, ConvBNorm, channels8, depth_round, stage
 
 
 def cspnet_channels(width_multiple: float) -> list:
@@ -23,9 +23,10 @@ def cspnet_out_channels(width_multiple: float = 0.5) -> Tuple[int, int, int, int
 class CSPNet(nn.Module):
     """Cross-stage-partial backbone. Input H and W must be divisible by 32.
 
-    `remat` only changes what training stores for backward, so the forward
-    ignores it. `space_to_depth_stem` and `early_min_channels` are opt-in
-    variants not in the port yet (ROADMAP §A.13).
+    `remat` checkpoints every ConvBNorm and C3 stage for the backward pass
+    (`blocks.stage`), as the JAX package wraps its Conv and C3 units.
+    `space_to_depth_stem` and `early_min_channels` are opt-in variants not
+    in the port yet (ROADMAP §A.13).
     """
 
     def __init__(self, in_channels: int = 3, width_multiple: float = 0.5,
@@ -40,6 +41,7 @@ class CSPNet(nn.Module):
         depths = [depth_round(d, depth_multiple) for d in [3, 6, 9, 3]]
         co = cspnet_channels(width_multiple)
         kw = dict(folded=folded, device=device)
+        self.remat = remat
         self.conv0 = ConvBNorm(in_channels, co[0], 6, 2, 2, **kw)
         self.conv1 = ConvBNorm(co[0], co[1], 3, 2, 1, **kw)
         self.c3_0 = C3Module(co[1], co[2], num_bottlenecks=depths[0], **kw)
@@ -54,11 +56,14 @@ class CSPNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         if x.shape[2] % 32 != 0 or x.shape[3] % 32 != 0:
             raise ValueError("input must have width and height divisible by 32")
-        out = self.drop(self.conv1(self.conv0(x)))
-        fmap1 = self.c3_0(out)
-        fmap2 = self.c3_1(self.drop(self.conv2(fmap1)))
-        fmap3 = self.c3_2(self.drop(self.conv3(fmap2)))
-        fmap4 = self.c3_3(self.conv4(fmap3))
+        def run(m, *a):
+            return stage(m, *a, remat=self.remat)
+
+        out = self.drop(run(self.conv1, run(self.conv0, x)))
+        fmap1 = run(self.c3_0, out)
+        fmap2 = run(self.c3_1, self.drop(run(self.conv2, fmap1)))
+        fmap3 = run(self.c3_2, self.drop(run(self.conv3, fmap2)))
+        fmap4 = run(self.c3_3, run(self.conv4, fmap3))
         return fmap1, fmap2, fmap3, fmap4
 
 

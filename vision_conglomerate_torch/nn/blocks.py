@@ -22,13 +22,20 @@ f32; BatchNorm computes in f32 with flax's running-stat rule (`BatchNorm2d`).
 The serve form stores conv weights in the compute dtype instead
 (`cast_conv_weights`); the kernels apply bias and activation to their f32
 accumulator.
+
+Rematerialization. The backbone and neck call their stages through
+`stage`, which with `remat` checkpoints each stage for the backward pass,
+the units the JAX package wraps in `nn.blocks.maybe_remat`.
 """
+import contextlib
 import math
+from contextvars import ContextVar
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3x3 import conv3x3_bias_act
 from ..ops.fused_matmul import ACTIVATIONS, apply_activation, pointwise_conv_act
@@ -92,6 +99,37 @@ def conv_bias_act(x: torch.Tensor, conv: nn.Conv2d, activation: Optional[str]) -
     return fn(_nhwc(x), w_hwio, conv.bias, activation).permute(0, 3, 1, 2)
 
 
+# True while torch.utils.checkpoint re-runs a stage's forward in the
+# backward pass (`stage`); BatchNorm2d then leaves its statistics alone
+_RECOMPUTING: ContextVar = ContextVar("vct_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _remat_contexts():
+    """(forward context, recompute context) for torch.utils.checkpoint."""
+    return contextlib.nullcontext(), _recomputing()
+
+
+def stage(module: nn.Module, *args: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """module(*args). With `remat`, while autograd records, the stage keeps
+    only its inputs for the backward pass and runs its forward again there
+    (torch.utils.checkpoint, non-reentrant; the RNG state is restored for
+    the recompute). BatchNorm2d updates its running statistics in the
+    forward only, not again in the recompute: flax's nn.remat mutates
+    batch_stats once per step, too."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False, context_fn=_remat_contexts)
+    return module(*args)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's running statistics (momentum 0.1, eps 1e-5).
 
@@ -105,7 +143,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     The batch statistics come out of F.batch_norm itself, run with momentum
     1 into two scratch buffers, so the train forward stays one fused
-    normalisation plus three small updates.
+    normalisation plus three small updates. The recompute of a
+    checkpointed stage (`stage`) normalises alike and skips the updates.
     """
 
     def __init__(self, num_features: int, device=None):
@@ -123,6 +162,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         # unbiased batch variance
         y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight, self.bias,
                          True, 1.0, self.eps)
+        if _RECOMPUTING.get():
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_mean.lerp_(self._batch_mean, self.momentum)

@@ -18,6 +18,7 @@ from .blocks import (
     bic_out_channels,
     channels8,
     depth_round,
+    stage,
 )
 
 _REPBIPAN_BASE8 = [512, 512, 256, 256, 256, 512, 512, 1024]
@@ -45,7 +46,9 @@ class RepBiPAN(nn.Module):
     Input (c2, c3, c4, c5) at strides 4/8/16/32, output (c2, n3, n4, n5).
     `repvgg_branch_act=None` is the canonical RepVGG block, which
     `deploy=True` fuses into one 3x3 conv; "silu" keeps the upstream branch
-    activations, which deploy by BN folding (`folded=True`).
+    activations, which deploy by BN folding (`folded=True`). `remat`
+    checkpoints every RepBlock, ConvBNorm, CSPSPPF and BiC stage for the
+    backward pass (`blocks.stage`), the units the JAX package wraps.
     """
 
     def __init__(self, in_channels: Sequence[int], width_multiple: float = 0.5,
@@ -58,6 +61,7 @@ class RepBiPAN(nn.Module):
         depths = [depth_round(d, depth_multiple) for d in [1, 1, 1, 1]]
         ch = pan_channel_outs(width_multiple, bic_with_conv)
         kw = dict(folded=folded, device=device)
+        self.remat = remat
 
         def rep(ci, co, n):
             return RepBlock(ci, co, n=n, branch_activation=repvgg_branch_act,
@@ -83,12 +87,15 @@ class RepBiPAN(nn.Module):
         self.repblock3 = rep(ch[8] + c5, ch[9], depths[3])
 
     def forward(self, fmaps: Sequence[torch.Tensor]):
+        def run(m, *a):
+            return stage(m, *a, remat=self.remat)
+
         c2, c3, c4, c5 = fmaps
-        p5 = self.cspsppf0(c5)
-        y0 = self.conv0(p5)
-        p4 = self.repblock0(self.bic0(c4, c3, y0))
-        y1 = self.conv1(p4)
-        n3 = self.repblock1(self.bic1(c3, c2, y1))
-        n4 = self.repblock2(torch.cat([self.conv2(n3), p4], dim=1))
-        n5 = self.repblock3(torch.cat([self.conv3(n4), p5], dim=1))
+        p5 = run(self.cspsppf0, c5)
+        y0 = run(self.conv0, p5)
+        p4 = run(self.repblock0, run(self.bic0, c4, c3, y0))
+        y1 = run(self.conv1, p4)
+        n3 = run(self.repblock1, run(self.bic1, c3, c2, y1))
+        n4 = run(self.repblock2, torch.cat([run(self.conv2, n3), p4], dim=1))
+        n5 = run(self.repblock3, torch.cat([run(self.conv3, n4), p5], dim=1))
         return c2, n3, n4, n5

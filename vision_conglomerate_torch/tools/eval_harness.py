@@ -1,0 +1,145 @@
+"""mAP harness: a checkpoint (or a live train pipeline) and a YOLO-format
+directory -> mAP@IoU, the JAX package's tools/eval_harness.py in PyTorch.
+
+- `evaluate_checkpoint_map` rebuilds the net from a checkpoint manifest in
+  the deploy form (`infer.runner.load_detection_model`: bf16 and both CUDA
+  kernels on `cuda`, f32 and their plain versions on the CPU);
+- `evaluate_pipeline_map` scores the live train-form net of a
+  TrainDetectionPipeline (the train CLI's `--map_eval` hook) in eval mode,
+  and puts it back in the mode it found it in.
+
+Per batch the uint8 images go to the device, are normalised there, and the
+forward, decode and NMS run there; only the kept (<= max_detections) boxes
+come back to the host, where `tools.map_eval` scores them. The JAX package
+pads the last batch to one compiled shape and drops the padded rows; the
+port needs no pad and scores the same images. Postprocess keeps
+box_allowance 0 (the serve pad would shift IoU against tight ground-truth
+boxes) and a low score threshold (mAP integrates the whole PR curve).
+"""
+import logging
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.postprocess import PostProcessResult, postprocess_detections
+from ..ops.preprocess import normalize_images
+from ..utils.labels import xywh2xyxy_np
+from .map_eval import compute_map
+
+logger = logging.getLogger(__name__)
+
+Forward = Callable[[np.ndarray], PostProcessResult]
+
+
+def _collect_and_score(forward: Forward, dataset, batch_size: int, num_classes: int,
+                       img_wh: Tuple[int, int], iou_threshold: float = 0.5) -> Dict[str, Any]:
+    """Run `forward` over the dataset in order, pair each image's kept
+    boxes with its ground truth (YOLO xywh scaled to img_wh pixels), and
+    compute mAP. forward: (B, H, W, 3) uint8 batch -> PostProcessResult."""
+    w, h = img_wh
+    scale = np.asarray([w, h, w, h], np.float32)
+    predictions, ground_truths = [], []
+    n = len(dataset)
+    for lo in range(0, n, batch_size):
+        imgs, labels, mask = dataset.collate_fn(
+            [dataset[i] for i in range(lo, min(lo + batch_size, n))])
+        post = forward(imgs)
+        boxes = post.boxes_xyxy.float().cpu().numpy()
+        scores = post.scores.float().cpu().numpy()
+        classes = post.classes.cpu().numpy()
+        valid = post.valid.cpu().numpy()
+        for k in range(imgs.shape[0]):
+            v = valid[k]
+            predictions.append((boxes[k][v], scores[k][v], classes[k][v]))
+            lab = labels[k][mask[k]]
+            ground_truths.append((xywh2xyxy_np(lab[:, 1:5]) * scale,
+                                  lab[:, 0].astype(np.int64)))
+    result = compute_map(predictions, ground_truths, num_classes, iou_threshold=iou_threshold)
+    result["num_images"] = n
+    return result
+
+
+def _make_postprocess_forward(model: torch.nn.Module, num_classes: int,
+                              iou_threshold_nms: float = 0.35, score_threshold: float = 0.001,
+                              max_detections: int = 300) -> Forward:
+    """uint8 NHWC numpy batch -> on the model's device: /255, forward,
+    decode, NMS with box_allowance 0. The model's mode is the caller's."""
+    dev = model.sm_anchors.device
+
+    @torch.no_grad()
+    def forward(imgs: np.ndarray) -> PostProcessResult:
+        x = normalize_images(torch.from_numpy(imgs).to(dev))
+        preds = model(x.permute(0, 3, 1, 2), inference=True)
+        return postprocess_detections(
+            preds, num_classes=num_classes, iou_threshold=iou_threshold_nms,
+            score_threshold=score_threshold, box_allowance=0.0,
+            max_detections=max_detections)
+
+    return forward
+
+
+def evaluate_checkpoint_map(
+    weights_path: str,
+    config: Dict[str, Any],
+    data_dir: str,
+    batch_size: int = 16,
+    iou_threshold: float = 0.5,
+    nms_iou_threshold: float = 0.35,
+    score_threshold: float = 0.001,
+    max_detections: int = 300,
+    use_reparam: bool = True,
+    max_labels: int = 64,
+    quantize: Optional[str] = None,
+    device=None,
+) -> Dict[str, Any]:
+    """Checkpoint + YOLO-format directory -> {"map", "ap_per_class",
+    "num_gt_per_class", "num_images"}. `device` None means cuda."""
+    from ..data.detection import DetectionDataset
+    from ..infer.runner import load_detection_model
+
+    if quantize not in (None, "none", "int8"):
+        raise ValueError(f"unknown quantize mode: {quantize!r}")
+    if quantize == "int8":
+        raise NotImplementedError("int8 evaluation is not in the port yet (ROADMAP §A.10)")
+    model_config = config["model_config"]
+    tc = config["train_config"]
+    img_wh = tuple(tc["img_config"]["img_wh"])
+    dataset = DetectionDataset(data_dir, img_ext=tc["img_config"]["img_ext"], img_wh=img_wh,
+                               max_labels=max_labels)
+    model, num_classes = load_detection_model(
+        weights_path, model_config, num_keypoints=model_config.get("num_keypoints") or None,
+        use_reparam=use_reparam, device=device)
+    forward = _make_postprocess_forward(
+        model, num_classes, iou_threshold_nms=nms_iou_threshold,
+        score_threshold=score_threshold, max_detections=max_detections)
+    return _collect_and_score(forward, dataset, batch_size, num_classes, img_wh, iou_threshold)
+
+
+def evaluate_checkpoint_seg(*args, **kwargs):
+    raise NotImplementedError("segmentation evaluation is not in the port yet (ROADMAP §A.11)")
+
+
+def evaluate_pipeline_map(
+    pipeline,
+    dataset,
+    batch_size: int = 16,
+    iou_threshold: float = 0.5,
+    nms_iou_threshold: float = 0.35,
+    score_threshold: float = 0.001,
+    max_detections: int = 300,
+) -> Dict[str, Any]:
+    """mAP of a live TrainDetectionPipeline's current (train-form) net. The
+    net runs in eval mode (BatchNorm normalises with its running statistics
+    and leaves them as they are) and returns to its former mode after."""
+    model = pipeline.model
+    was_training = model.training
+    model.eval()
+    try:
+        forward = _make_postprocess_forward(
+            model, model.num_classes, iou_threshold_nms=nms_iou_threshold,
+            score_threshold=score_threshold, max_detections=max_detections)
+        return _collect_and_score(forward, dataset, batch_size, model.num_classes,
+                                  tuple(dataset.img_wh), iou_threshold)
+    finally:
+        model.train(was_training)

@@ -26,7 +26,7 @@ from .checkpoint import save_checkpoint as _save_ckpt
 logger = logging.getLogger(__name__)
 
 # The JAX package turns `model_config.remat` on at batch >= 32 when the
-# config leaves it unset; the port keeps the rule (and raises on remat).
+# config leaves it unset; the port keeps the rule.
 REMAT_AUTO_BATCH = 32
 
 
@@ -143,6 +143,13 @@ class BasePipeline:
         if verbose:
             print(f"[{mode.title()}]: " + "\t".join(
                 f"{k.replace('_', ' ')}: {v :.4f}" for k, v in metrics.items()))
+
+    def annotate_last(self, mode: str, extra: Dict[str, float]):
+        """Merge extra metrics (the --map_eval hook's mAP@50) into the most
+        recent epoch record, so they reach the CSVs and plots."""
+        history = getattr(self, f"_{mode}_metrics")
+        if history:
+            history[-1].update(extra)
 
     def metrics_to_csv(self):
         os.makedirs(self.metrics_dir, exist_ok=True)

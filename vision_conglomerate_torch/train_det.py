@@ -8,9 +8,12 @@ It writes what the JAX CLI writes: metrics/detection/*.csv and plots,
 saved_model/detection/best_model/DetectionNet.ckpt.tar with its
 config/config.yaml, and snapshots under saved_model/detection/checkpoints/.
 Auto-anchors may rewrite the file given as --anchors_path, and no other.
-The lr is scaled by the device count (1). Not in the port yet, and raising:
---use_ddp (ROADMAP §A.8), --map_eval (§A.9), and `model_config.remat`
-resolving true (§A.8), which happens by default at batch >= 32.
+The lr is scaled by the device count (1). `--map_eval` adds the val set's
+mAP@50 to each eval record (a `map50` column in eval_metrics.csv).
+`model_config.remat`, which the CLI turns on by default at batch >= 32,
+recomputes each backbone and neck stage in the backward pass
+(`nn.blocks.stage`). `--use_ddp` is not in the port yet and raises (ROADMAP
+§A.8).
 """
 import argparse
 import logging
@@ -75,13 +78,7 @@ def build(args, config, config_path, anchors_path):
 
     if args.use_ddp:
         raise NotImplementedError("--use_ddp is not in the port yet (ROADMAP §A.8)")
-    if getattr(args, "map_eval", False):
-        raise NotImplementedError("--map_eval is not in the port yet (ROADMAP §A.9)")
     resolve_remat_default(config["model_config"], args.batch_size)
-    if config["model_config"]["remat"]:
-        raise NotImplementedError(
-            "model_config.remat is not in the port yet (ROADMAP §A.8); it turns on by "
-            "default at batch_size >= 32: set `remat: false` in model_config")
     dev = resolve_device(args.device)
 
     tc = config["train_config"]
@@ -143,6 +140,14 @@ def run(args, config, config_path, anchors_path):
             pipeline.train(train_dl, verbose=verbose)
         if ((epoch + 1) % args.eval_interval == 0) or (epoch + 1 == args.epochs):
             metrics = pipeline.evaluate(eval_dl, verbose=verbose)
+            if args.map_eval:
+                from .tools.eval_harness import evaluate_pipeline_map
+
+                map_res = evaluate_pipeline_map(pipeline, eval_dl.dataset,
+                                                batch_size=args.batch_size)
+                pipeline.annotate_last("eval", {"map50": float(map_res["map"])})
+                if verbose:
+                    logger.info(f"mAP@50: {map_res['map']:.4f}")
             if metrics["aggregate_loss"] < best_loss:
                 best_loss = metrics["aggregate_loss"]
                 pipeline.save_best_model()
@@ -168,7 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config_path", type=str, default="configs/detection/config.yaml", metavar="", help="Config YAML path")
     parser.add_argument("--anchors_path", type=str, default="configs/detection/anchors.yaml", metavar="", help="Anchors YAML path")
     parser.add_argument("--profile_dir", type=str, default="", metavar="", help="Write a torch.profiler trace of the first epoch here")
-    parser.add_argument("--map_eval", action="store_true", help="Compute mAP@50 on the val set at each eval interval (not in the port yet)")
+    parser.add_argument("--map_eval", action="store_true", help="Compute mAP@50 on the val set at each eval interval (recorded in eval metrics)")
     parser.add_argument("--lr", type=float, default=0.0, metavar="", help="Override optimizer_config.lr (still scaled by device count); 0 = use config")
     parser.add_argument("--device", type=str, default="cuda", metavar="", help="device to train on (cuda or cpu)")
     return parser

@@ -1,5 +1,8 @@
 """Host-side rendering and summary tables (cv2/pandas), as in the JAX
-package's utils/drawing.py. Inputs are HWC numpy images."""
+package's utils/drawing.py. Inputs are HWC numpy images.
+
+`apply_keypoints` comes with the keypoint head (ROADMAP §A.13) and
+`apply_segments` with segmentation (§A.11)."""
 from typing import Any, Dict, List, Optional
 
 import cv2
@@ -39,15 +42,48 @@ def apply_bboxes(img: np.ndarray, bboxes: np.ndarray, box_thickness: int = 2,
     return img
 
 
+def apply_bboxes_from_tracks(img: np.ndarray, tracks: np.ndarray, box_thickness: int = 2,
+                             text_thickness: int = 2, colormap: Optional[np.ndarray] = None,
+                             classmap: Optional[List[Dict[str, Any]]] = None):
+    """Draw tracked boxes labelled `id:<track_id>` on an HWC image. tracks:
+    (n, 7) [track_id, score, class, x1, y1, x2, y2]; rows with a NaN score
+    are skipped. Returns (image, (k, 7) drawn rows with int track ids and
+    classes)."""
+    if img.dtype != np.uint8:
+        img = (img * 255).astype(np.uint8)
+    img = np.ascontiguousarray(img)
+    drawn = []
+    for track_id, score, class_idx, x1, y1, x2, y2 in np.asarray(tracks).reshape(-1, 7):
+        if np.isnan(score):
+            continue
+        class_idx = int(class_idx)
+        drawn.append([int(track_id), float(score), class_idx, x1, y1, x2, y2])
+        x1, y1, x2, y2 = (round(float(v)) for v in (x1, y1, x2, y2))
+        color = tuple(int(v) for v in colormap[class_idx]) if colormap is not None else (0, 255, 0)
+        img = cv2.rectangle(img, (x1, y1), (x2, y2), color, box_thickness)
+        name = classmap[class_idx]["name"] if classmap else class_idx
+        text = f"id:{int(track_id)} ({name} {score :.2f})"
+        tw, th = cv2.getTextSize(text, FONT, FONT_SCALE, text_thickness)[0]
+        img = cv2.rectangle(img, (x1, y1 - th - 4), (x1 + tw + 2, y1), color, cv2.FILLED)
+        img = cv2.putText(img, text, (x1, y1 - 2), FONT, FONT_SCALE, (0, 0, 0), text_thickness)
+    return img, np.asarray(drawn)
+
+
 def detection_summary_df(bboxes: np.ndarray, classmap: Optional[List[Dict[str, Any]]] = None
                          ) -> Optional[pd.DataFrame]:
-    """Per-box summary rows of (n, 6) [score, cls, x, y, w, h] boxes, the
-    coordinates truncated to int; None for no boxes."""
+    """Per-box summary rows of (n, 6) [score, cls, x, y, w, h] boxes or
+    (n, 7) [track_id, score, cls, x, y, w, h] tracks, the coordinates
+    truncated to int; None for no boxes."""
     data = []
-    for score, class_idx, *coords in np.asarray(bboxes):
+    for box in np.asarray(bboxes):
+        row = {}
+        if len(box) == 7:
+            row["track_id"] = box[0]
+            box = box[1:]
+        score, class_idx, *coords = box
         class_idx = int(class_idx)
-        row = {"confidence": score,
-               "class": classmap[class_idx]["name"] if classmap else class_idx}
+        row.update({"confidence": score,
+                    "class": classmap[class_idx]["name"] if classmap else class_idx})
         row.update({k: int(v) for k, v in zip(("X", "Y", "W", "H"), coords)})
         data.append(row)
     return pd.DataFrame(data) if data else None
