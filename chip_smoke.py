@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU and hold its CUDA kernels
-against their plain PyTorch versions.
+"""Drive the PyTorch port's detection and segmentation paths on one NVIDIA
+GPU and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also writes torch.profiler tables
@@ -85,6 +85,35 @@ Phases (any failure exits non-zero; nothing is caught):
    within the f32 limits of TRAIN_LIMITS, and remat's peak memory
    allocated must be lower. Both peaks and both step times (3 more steps
    each, host clock, synchronized) are printed.
+11. seg serve: a SegmentationNet at the shipped seg config
+   (configs/segmentation: the detector's widths, 32 masks, ProtoSegModule
+   c_h 256) with seeded weights and BatchNorm state, as a JAX-format
+   checkpoint, serves the 8 images through
+   `run_detection_inference(task="segmentation")` on the card at batch 4,
+   deploy form, bf16; both counters are zeroed before and must have risen
+   after, once per routed conv per batch; the peak memory allocated is
+   read over that call. Card vs CPU f32 on one batch: decoded logits,
+   boxes and mask coefficients and the protos within SEG_MODEL_LIMITS and
+   PROTO_LIMITS; the binary masks' IoU on the boxes both sides kept is
+   reported. Warm images/s as in phase 2.
+12. seg video: the clip once at frame_skips 1 with the seg checkpoint (its
+   conf and class layers rescaled as in phase 4): video.mp4 must hold 24
+   frames and both counters must rise.
+13. seg train: 64 train and 16 valid 640x640 JPEGs with 2-6 filled polygons
+   each (YOLO-seg labels, 80 classes) and temp copies of the seg config and
+   anchors; `train_seg.run` at batch 16 for 2 epochs with the lr schedule.
+   Each epoch's mean loss must be finite, and the metrics CSVs (with
+   seg_loss, dice_score, seg_dropped_candidates), the snapshots and
+   best_model/ must exist.
+14. seg card vs CPU: phase 6 for the seg net with cap_policy "first"
+   (SEG_TRAIN_LIMITS, BF16_COS_RATIO).
+15. seg eval: the eval_seg entry point on best_model/ over the valid images,
+   and on a seg net taken SEG_LEARN_STEPS steps on one batch of 16 over
+   those 16 images, each on the card (both counters must rise) and on the
+   CPU: the JAX CLI's keys, |card - cpu| of mask mAP@50 and dice within
+   SEG_EVAL_LIMITS, and the learned net's mask mAP@50 and dice above 0.
+The kernel phase (3) runs last, over the shapes of both serve paths, and
+prints each kernel's sums per batch of each path.
 With --profile, 3 fixed-batch train steps are profiled too: device-busy
 share and the top device ops (chiprun_out/train_profile.txt).
 
@@ -158,8 +187,35 @@ TRAIN_EPOCHS = 2
 N_TRAIN, N_VALID = 64, 16
 LEARN_STEPS = 20
 # the learning phase's net goes on to this many steps before eval_det
-# scores it on the images it learned
+# scores it on the images it learned; the seg net takes SEG_LEARN_STEPS
 EVAL_LEARN_STEPS = 100
+SEG_LEARN_STEPS = 400
+
+# The segmentation phases (configs/segmentation: the detector's widths
+# plus 32 masks and a ProtoSegModule of c_h 256). Card bf16 vs CPU f32 on
+# one serve batch, (max, mean) |card - cpu|: about 3x what this script read
+# on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): logits 1.13e-3 and
+# 1.73e-4, boxes 0.243 and 8.68e-3 px, coefficients 1.11e-3 and 1.90e-4,
+# protos 7.44e-4 and 1.09e-4.
+SEG_MODEL_LIMITS = {"logits": (3.5e-3, 5e-4), "boxes": (0.75, 0.026), "coefs": (3.5e-3, 6e-4)}
+PROTO_LIMITS = (2.3e-3, 3.5e-4)
+# one seg train step (cap_policy "first") against the CPU f32 step, about 3x
+# the readings: f32 loss rel 1.30e-7, 1 - lowest cosine 5.17e-8, BatchNorm
+# 3.12e-5; bf16 loss rel 6.80e-4, BatchNorm 0.111 (bf16 gradients held by
+# BF16_COS_RATIO, read 1.13 and 1.14)
+SEG_TRAIN_LIMITS = {
+    "f32": {"loss_rel": 4e-7, "one_minus_min_cos": 1.6e-7, "bn_stats": 1e-4},
+    "bf16": {"loss_rel": 2e-3, "bn_stats": 0.33},
+}
+# |card bf16 - cpu f32| of eval_seg's mask mAP@50 and dice. Both read 0 on
+# both checkpoints; the learned images hold about one instance of each of
+# ~64 classes, so one instance matched on one side only moves either by
+# about 1/64: the limit is three such flips
+SEG_EVAL_LIMITS = {"mask_map50": 0.05, "dice": 0.05}
+# the root eval_seg.py's JSON keys
+SEG_EVAL_KEYS = ["mask_map50", "dice", "dice_matched", "mask_recall50", "box_map50",
+                 "iou_threshold", "mask_ap_per_class", "num_gt_per_class", "num_images",
+                 "weights", "data_dir", "quantize", "crop_masks"]
 
 KERNELS = {
     "matmul": dict(name="matmul_bias_act", route="cuda",
@@ -201,6 +257,23 @@ def device_ms(fn, iters: int = 20) -> float:
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def counters():
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
+    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
+
+    return matmul_bias_act, conv3x3_bias_act
+
+
+def zero_counters():
+    for fn in counters():
+        fn.launches = 0
+
+
+def read_counters():
+    mm, conv = counters()
+    return {"matmul": mm.launches, "conv3x3": conv.launches}
 
 
 def build_kernels():
@@ -248,14 +321,15 @@ def make_inputs(root: str):
     return config, ckpt, img_dirs, net
 
 
-def serve(config, ckpt, img_dir, storage):
+def serve(config, ckpt, img_dir, storage, task="detection"):
     """One run_detection_inference call at this script's settings;
     returns (host-clock seconds, output dir)."""
     from vision_conglomerate_torch.infer.runner import run_detection_inference
 
     t0 = time.time()
-    out = run_detection_inference(img_dir, ckpt, config, batch_size=BATCH, score_threshold=0.01,
-                                  with_summary=True, storage_path=storage, device="cuda")
+    out = run_detection_inference(img_dir, ckpt, config, task=task, batch_size=BATCH,
+                                  score_threshold=0.01, with_summary=True, storage_path=storage,
+                                  device="cuda")
     torch.cuda.synchronize()
     return time.time() - t0, out
 
@@ -363,7 +437,7 @@ def host_phases(preds, og_img):
 
     post()
     t0 = time.time()
-    boxes, scores, classes, valid = post()
+    boxes, scores, classes, valid, _ = post()
     nms_ms = (time.time() - t0) * 1e3
     kept = np.concatenate([scores[0][:, None], classes[0][:, None].astype(np.float32),
                            boxes[0]], axis=-1)[valid[0]]
@@ -377,15 +451,18 @@ def host_phases(preds, og_img):
             "draw_ms_per_image": draw_ms, "png_encode_ms_per_image": png_ms}
 
 
-def kernel_cases(seen):
-    """Distinct kernel shapes of one serve batch with their launch counts,
-    plus ragged shapes that the serve path does not give."""
-    cases = Counter(seen)
-    cases[("matmul", (1, 64, 1025, 1), 64, "silu")] += 0  # M = 1025, not a multiple of 128
-    cases[("matmul", (1, 20, 100, 1), 5, "relu")] += 0  # K, N not multiples of 8
-    cases[("conv3x3", (1, 3, 7, 300), 5, "silu")] += 0  # Cin, Cout not multiples of 8
-    cases[("conv3x3", (1, 40, 20, 20), 24, "silu")] += 0  # 9 * Cin not a multiple of 64
-    return cases
+def kernel_cases(paths):
+    """Distinct kernel shapes of one batch of each path ({path: shapes
+    seen}), each with its launches per batch on every path, plus ragged
+    shapes that no path gives."""
+    counts = {path: Counter(seen) for path, seen in paths.items()}
+    shapes = set().union(*counts.values()) | {
+        ("matmul", (1, 64, 1025, 1), 64, "silu"),  # M = 1025, not a multiple of 128
+        ("matmul", (1, 20, 100, 1), 5, "relu"),  # K, N not multiples of 8
+        ("conv3x3", (1, 3, 7, 300), 5, "silu"),  # Cin, Cout not multiples of 8
+        ("conv3x3", (1, 40, 20, 20), 24, "silu"),  # 9 * Cin not a multiple of 64
+    }
+    return {shape: {path: c[shape] for path, c in counts.items()} for shape in shapes}
 
 
 def launcher_tile(route, m, n, k):
@@ -440,10 +517,15 @@ def run_case(route, shape, cout, act, g):
                 tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)))
 
 
-def kernel_phase(seen, launches):
+def kernel_phase(paths):
+    """Every shape of every path against the plain version, timed. paths:
+    {path: (shapes seen in one batch's forward, launches on the path's
+    run)}; "serve" is the main path of the JSON line's `launches` and
+    per-batch sums, and every other path adds its own under its name."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for (route, shape, cout, act), per_batch in sorted(kernel_cases(seen).items()):
+    for (route, shape, cout, act), per_batch in sorted(
+            kernel_cases({p: v[0] for p, v in paths.items()}).items()):
         r = run_case(route, shape, cout, act, g)
         r["launches_per_batch"] = per_batch
         rows.append(r)
@@ -452,7 +534,8 @@ def kernel_phase(seen, launches):
             desc, rate = f"M={b * h * w} K={cin} N={cout}", f"{r['bytes'] / r['ms'] / 1e9:.3f} TB/s"
         else:
             desc, rate = f"B={b} {h}x{w} {cin}->{cout}", f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
-        print(f"kernel {KERNELS[route]['name']} {desc} x{per_batch}/batch: "
+        uses = ", ".join(f"{p} x{n}" for p, n in per_batch.items() if n)
+        print(f"kernel {KERNELS[route]['name']} {desc} ({uses + ' a batch' if uses else 'ragged'}): "
               f"{r['ms']:.4f} ms = {rate}, {r['ms'] / r['bound_ms']:.1f}x bound "
               f"({r['bound_ms']:.4f} by {r['bound_by']}), {r['ms'] / r['library_ms']:.2f}x library "
               f"({r['library_ms']:.4f}), plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}, "
@@ -462,19 +545,29 @@ def kernel_phase(seen, launches):
     summary = []
     for route, meta in KERNELS.items():
         mine = [r for r in rows if r["route"] == route]
-        check(any(r["launches_per_batch"] for r in mine), f"no main-path shapes for {route}")
+        entry = dict(meta)
+        for path, (_, launches) in paths.items():
+            check(any(r["launches_per_batch"][path] for r in mine),
+                  f"no {path} shapes for {route}")
 
-        def total(key):
-            return sum(r[key] * r["launches_per_batch"] for r in mine)
+            def total(key):
+                return sum(r[key] * r["launches_per_batch"][path] for r in mine)
 
-        by_bytes = sum(r["bound_ms"] * r["launches_per_batch"] for r in mine
-                       if r["bound_by"] == "bytes")
-        summary.append(dict(
-            **meta, launches=launches[route],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-            bound_by="bytes" if by_bytes >= total("bound_ms") / 2 else "operations",
-            library_ms=total("library_ms")))
+            by_bytes = sum(r["bound_ms"] * r["launches_per_batch"][path] for r in mine
+                           if r["bound_by"] == "bytes")
+            sums = dict(launches=launches[route], ms=total("ms"), plain_ms=total("plain_ms"),
+                        bound_ms=total("bound_ms"),
+                        bound_by="bytes" if by_bytes >= total("bound_ms") / 2 else "operations",
+                        library_ms=total("library_ms"))
+            print(f"kernel {meta['name']}, {path}: per batch of {BATCH} {sums['ms']:.4f} ms, "
+                  f"bound {sums['bound_ms']:.4f} ({sums['bound_by']}), library "
+                  f"{sums['library_ms']:.4f}, plain {sums['plain_ms']:.4f}; "
+                  f"{sums['launches']} launches on the path's run")
+            if path == "serve":
+                entry.update(sums, max_abs_err=max(r["max_abs_err"] for r in mine))
+            else:
+                entry.update({f"{path}_{k}": v for k, v in sums.items()})
+        summary.append(entry)
     return rows, summary
 
 
@@ -537,7 +630,7 @@ def write_clips(root):
     return paths, samples
 
 
-def tracking_checkpoint(root, config, net, frames):
+def tracking_checkpoint(root, config, net, frames, name="DetectionNet"):
     """The serve-phase net with its conf and class logits standardised on
     `frames` (per head and output channel: conf mean -3 and std 2, class
     mean 0 and std 2; train form, f32, on the card), as a checkpoint. The
@@ -567,7 +660,7 @@ def tracking_checkpoint(root, config, net, frames):
                 gain = 2.0 / z.std(dim=(0, 2, 3))
                 layer.bias.copy_((layer.bias - z.mean(dim=(0, 2, 3))) * gain + mean)
                 layer.weight.mul_(gain[:, None, None, None])
-    ckpt = os.path.join(root, "tracking", "DetectionNet.ckpt.tar")
+    ckpt = os.path.join(root, "tracking", f"{name}.ckpt.tar")
     save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
                            "NETWORK_PARAMS": state_dict_to_flax(net.cpu().state_dict())})
     return ckpt
@@ -612,21 +705,16 @@ def csv_agreement(got, want, keys=("frame", "track_id", "class")) -> float:
     return float(matched) / max(len(got), len(want), 1)
 
 
-def video_phase(root, config, net):
+def video_phase(root, config, net, clips, samples):
     """The clip served on the card through both kernels (frame_skips 0 and
     1), against the serial path and the CPU; warm frames/s with and without
     the prefetch thread."""
-    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
-    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
-
-    clips, samples = write_clips(root)
     ckpt = tracking_checkpoint(root, config, net, samples)
     clip = clips[VIDEO_FRAMES]
-    matmul_bias_act.launches = 0
-    conv3x3_bias_act.launches = 0
+    zero_counters()
     runs = {skips: serve_video(clip, ckpt, config, os.path.join(root, f"video_skip{skips}"),
                                frame_skips=skips) for skips in (0, 1)}
-    launches = {"matmul": matmul_bias_act.launches, "conv3x3": conv3x3_bias_act.launches}
+    launches = read_counters()
     print(f"video: {VIDEO_FRAMES} frames 1280x720 at batch {VIDEO_KW['batch_size']} through "
           f"run_detection_inference, frame_skips 0 and 1: {runs[0][0]:.2f} s and "
           f"{runs[1][0]:.2f} s (first calls); launches {launches}")
@@ -722,52 +810,62 @@ def write_train_data(root):
     return config, config_path, anchors_path
 
 
-def run_train_cli(root, config, config_path, anchors_path):
-    """The port's train_det `run` at the shipped config on the card, cwd in
-    root; returns (pipeline, seconds, peak bytes allocated)."""
-    from vision_conglomerate_torch import train_det
+def run_train_cli(root, config, config_path, anchors_path, task="detection"):
+    """The port's train_det `run` (with --map_eval), or train_seg's, at the
+    shipped config on the card, cwd in root; returns (pipeline, seconds,
+    peak bytes allocated)."""
+    from vision_conglomerate_torch import train_det, train_seg
 
     args = argparse.Namespace(
         batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, checkpoint_interval=1, eval_interval=1,
         no_verbose=True, lr_schedule=True, lr_schedule_interval=1, use_ddp=False,
-        checkpoint_path="", profile_dir="", map_eval=True, lr=0.0, device="cuda")
+        checkpoint_path="", lr=0.0, device="cuda")
+    if task == "detection":
+        args.profile_dir, args.map_eval = "", True
     cwd = os.getcwd()
     os.chdir(root)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     try:
-        pipe = train_det.run(args, config, config_path, anchors_path)
+        cli = train_seg if task == "segmentation" else train_det
+        pipe = cli.run(args, config, config_path, anchors_path)
     finally:
         os.chdir(cwd)
     torch.cuda.synchronize()
     return pipe, time.time() - t0, torch.cuda.max_memory_allocated()
 
 
-def check_train_artifacts(root, pipe):
+def check_train_artifacts(root, pipe, task="detection"):
+    """What the train CLI of `task` must have written under root: finite
+    epoch losses, the metrics CSVs (detection: map50 of --map_eval; seg:
+    seg_loss, dice_score, seg_dropped_candidates), a snapshot an epoch, and
+    best_model/ with its config and f32 conv kernels."""
+    import pandas as pd
     from vision_conglomerate_torch.train.checkpoint import load_checkpoint
 
     hist = pipe._train_metrics
     check(len(hist) == TRAIN_EPOCHS and len(pipe._eval_metrics) == TRAIN_EPOCHS,
-          f"{len(hist)} train and {len(pipe._eval_metrics)} eval records")
+          f"{task}: {len(hist)} train and {len(pipe._eval_metrics)} eval records")
     for m in hist + pipe._eval_metrics:
         # an epoch's mean loss is finite only if every step's loss was
-        check(bool(np.isfinite(m["aggregate_loss"])), f"non-finite loss in {m}")
-    for rel in ("metrics/detection/train_metrics.csv", "metrics/detection/eval_metrics.csv",
-                "saved_model/detection/best_model/DetectionNet.ckpt.tar",
-                "saved_model/detection/best_model/config/config.yaml"):
-        check(os.path.isfile(os.path.join(root, rel)), f"train artifact missing: {rel}")
-    import pandas as pd
-
-    evals = pd.read_csv(os.path.join(root, "metrics/detection/eval_metrics.csv"))
-    check("map50" in evals.columns and len(evals) == TRAIN_EPOCHS
-          and bool(np.isfinite(evals["map50"]).all()),
-          f"eval_metrics.csv of --map_eval: columns {list(evals.columns)}, {len(evals)} rows")
-    print(f"train: --map_eval mAP@50 per epoch {evals['map50'].tolist()} (eval_metrics.csv)")
-    snaps = [f for _, _, fs in os.walk(os.path.join(root, "saved_model/detection/checkpoints"))
+        check(bool(np.isfinite(m["aggregate_loss"])), f"{task}: non-finite loss in {m}")
+    best = f"saved_model/{task}/best_model/{type(pipe.model).__name__}.ckpt.tar"
+    for rel in (f"metrics/{task}/train_metrics.csv", f"metrics/{task}/eval_metrics.csv", best,
+                f"saved_model/{task}/best_model/config/config.yaml"):
+        check(os.path.isfile(os.path.join(root, rel)), f"{task} train artifact missing: {rel}")
+    columns = ["map50"] if task == "detection" else [
+        "seg_loss", "dice_score", "seg_dropped_candidates"]
+    for mode in ("eval",) if task == "detection" else ("train", "eval"):
+        df = pd.read_csv(os.path.join(root, f"metrics/{task}/{mode}_metrics.csv"))
+        check(set(columns) <= set(df.columns) and len(df) == TRAIN_EPOCHS
+              and bool(np.isfinite(df[columns].to_numpy()).all()),
+              f"{task} {mode}_metrics.csv: columns {list(df.columns)}, {len(df)} rows")
+    if task == "detection":
+        print(f"train: --map_eval mAP@50 per epoch {df['map50'].tolist()} (eval_metrics.csv)")
+    snaps = [f for _, _, fs in os.walk(os.path.join(root, f"saved_model/{task}/checkpoints"))
              for f in fs if f.endswith(".ckpt.tar")]
-    check(len(snaps) == TRAIN_EPOCHS, f"snapshots: {snaps}")
-    manifest = load_checkpoint(os.path.join(
-        root, "saved_model/detection/best_model/DetectionNet.ckpt.tar"))
+    check(len(snaps) == TRAIN_EPOCHS, f"{task} snapshots: {snaps}")
+    manifest = load_checkpoint(os.path.join(root, best))
     kernels = []
 
     def walk(tree):
@@ -779,19 +877,21 @@ def check_train_artifacts(root, pipe):
     walk(manifest["NETWORK_PARAMS"]["params"])
     n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in pipe.model.modules())
     check(len(kernels) == n_convs and all(k.dtype == np.float32 for k in kernels),
-          f"best model: {len(kernels)} conv kernels for {n_convs} convs, dtypes "
+          f"{task} best model: {len(kernels)} conv kernels for {n_convs} convs, dtypes "
           f"{sorted({str(k.dtype) for k in kernels})} (want float32)")
 
 
-def seeded_net(config, anchors, dtype=torch.float32, device="cpu", state=None):
-    """A train-form net with Xavier init and non-trivial BatchNorm state from
-    SEED (or the given state_dict), computing in dtype on device."""
-    from vision_conglomerate_torch.models.detection import DetectionNet
+def seeded_net(config, anchors, dtype=torch.float32, device="cpu", state=None,
+               task="detection"):
+    """A train-form net (a SegmentationNet for task "segmentation") with
+    Xavier init and non-trivial BatchNorm state from SEED (or the given
+    state_dict), computing in dtype on device."""
+    from vision_conglomerate_torch.models import DetectionNet, SegmentationNet
     from vision_conglomerate_torch.nn.blocks import randomize_batchnorm_
     from vision_conglomerate_torch.nn.initializers import xavier_conv_init
 
-    net = DetectionNet(NUM_CLASSES, config["model_config"], anchors=anchors, dtype=dtype,
-                       device="cpu")
+    cls = SegmentationNet if task == "segmentation" else DetectionNet
+    net = cls(NUM_CLASSES, config["model_config"], anchors=anchors, dtype=dtype, device="cpu")
     if state is None:
         g = torch.Generator().manual_seed(SEED)
         randomize_batchnorm_(xavier_conv_init(net, g), g)
@@ -801,22 +901,31 @@ def seeded_net(config, anchors, dtype=torch.float32, device="cpu", state=None):
 
 
 def trainer(net, config):
+    """The train CLI's pipeline for net (detection or segmentation), with
+    the config's optimizer and loss, and no re-initialisation."""
+    from vision_conglomerate_torch import train_det, train_seg
+    from vision_conglomerate_torch.models import SegmentationNet
     from vision_conglomerate_torch.train.detection_trainer import TrainDetectionPipeline
     from vision_conglomerate_torch.train.optim import make_optimizer
-    from vision_conglomerate_torch.train_det import make_loss_config
+    from vision_conglomerate_torch.train.segmentation_trainer import TrainSegmentationPipeline
 
     opt, _ = make_optimizer(config["train_config"]["optimizer_config"], net)
-    pipe = TrainDetectionPipeline(net, make_loss_config(config, NUM_CLASSES), opt, init_scheme=None)
+    if isinstance(net, SegmentationNet):
+        pipe = TrainSegmentationPipeline(net, train_seg.make_loss_config(config, NUM_CLASSES),
+                                         opt, init_scheme=None)
+    else:
+        pipe = TrainDetectionPipeline(net, train_det.make_loss_config(config, NUM_CLASSES), opt,
+                                      init_scheme=None)
     net.train()
     return pipe
 
 
-def train_batch(config, n):
-    """The first n train images and their padded labels, as the loader
-    collates them (numpy)."""
-    from vision_conglomerate_torch.train_det import make_dataset
+def train_batch(config, n, task="detection"):
+    """The first n train images with their padded labels (and target
+    masks), as the loader collates them (numpy)."""
+    from vision_conglomerate_torch import train_det, train_seg
 
-    ds = make_dataset(config, "train")
+    ds = (train_seg if task == "segmentation" else train_det).make_dataset(config, "train")
     return ds.collate_fn([ds[i] for i in range(n)])
 
 
@@ -855,68 +964,76 @@ def compare_steps(a, b, names):
                 bn_stats=max((sa[n] - sb[n]).abs().max().item() for n in sb))
 
 
-def card_vs_cpu_step(config, anchors):
+def card_vs_cpu_step(config, anchors, task="detection", limits=None):
     """One seeded net, one batch of 2: the step on the card in f32 and in
-    bf16 against the CPU f32 step (TRAIN_LIMITS). The CPU's own bf16 step
-    is measured beside them: how far bf16 alone moves the step. The anchors
-    get no gradient, and the conv biases in front of a train-mode BatchNorm
-    only rounding noise: both are left out of the cosines."""
-    cpu = seeded_net(config, anchors)
+    bf16 against the CPU f32 step (`limits`, TRAIN_LIMITS by default). The
+    CPU's own bf16 step is measured beside them: how far bf16 alone moves
+    the step. The anchors get no gradient, and the conv biases in front of
+    a train-mode BatchNorm only rounding noise: both are left out of the
+    cosines."""
+    limits = limits or TRAIN_LIMITS
+    tag_ = "seg train" if task == "segmentation" else "train"
+    cpu = seeded_net(config, anchors, task=task)
     state = {k: v.clone() for k, v in cpu.state_dict().items()}
-    batch = train_batch(config, 2)
+    batch = train_batch(config, 2, task)
     skip = no_grad_biases(cpu)
     ref = train_step_result(cpu, config, batch)
     names = [n for n in ref[1] if n not in skip]
-    steps = {tag: train_step_result(seeded_net(config, anchors, dtype, dev, state), config, batch)
+    steps = {tag: train_step_result(seeded_net(config, anchors, dtype, dev, state, task), config,
+                                    batch)
              for tag, dtype, dev in (("f32", torch.float32, "cuda"),
                                      ("bf16", torch.bfloat16, "cuda"),
                                      ("cpu_bf16", torch.bfloat16, "cpu"))}
     out = {tag: compare_steps(r, ref, names) for tag, r in steps.items()}
     out["bf16_vs_cpu_bf16"] = compare_steps(steps["bf16"], steps["cpu_bf16"], names)
     for tag, r in out.items():
-        print(f"train: one step on 2 images at 640x640, {tag} vs cpu f32: loss {r['loss']:.6f} vs "
+        print(f"{tag_}: one step on 2 images at 640x640, {tag} vs cpu f32: loss {r['loss']:.6f} vs "
               f"{r['loss_ref']:.6f}, rel {r['loss_rel']:.3e}; 1 - gradient cosine: lowest "
               f"{r['one_minus_min_cos']:.3e} ({r['worst_grad']}), median "
               f"{r['one_minus_median_cos']:.3e}, all as one vector "
               f"{r['one_minus_global_cos']:.3e}; BatchNorm running stats max |d| "
               f"{r['bn_stats']:.3e}".replace("bf16_vs_cpu_bf16 vs cpu f32", "card bf16 vs cpu bf16")
-              + (f"; limits {TRAIN_LIMITS[tag]}" if tag in TRAIN_LIMITS else ""))
-    print(f"train: {len(names)} parameters compared; {len(skip)} conv biases before BatchNorm "
+              + (f"; limits {limits[tag]}" if tag in limits else ""))
+    print(f"{tag_}: {len(names)} parameters compared; {len(skip)} conv biases before BatchNorm "
           f"and the anchors left out")
     for key in ("one_minus_global_cos", "one_minus_median_cos"):
         ratio = out["bf16"][key] / out["cpu_bf16"][key]
         out["bf16"][key + "_ratio"] = ratio
-        print(f"train: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} (limit {BF16_COS_RATIO:g})")
+        print(f"{tag_}: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} "
+              f"(limit {BF16_COS_RATIO:g})")
         check(bool(np.isfinite(ratio)) and ratio <= BF16_COS_RATIO,
-              f"card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's bf16 ({key})")
-    for tag, limits in TRAIN_LIMITS.items():
-        for key, lim in limits.items():
+              f"{tag_}: card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's "
+              f"bf16 ({key})")
+    for tag, lims in limits.items():
+        for key, lim in lims.items():
             v = out[tag][key]
             check(bool(np.isfinite(v)) and v <= lim,
-                  f"card {tag} train step differs from the CPU: {key} {v:.3e} > {lim:g}")
+                  f"card {tag} {tag_} step differs from the CPU: {key} {v:.3e} > {lim:g}")
     return out
 
 
-def learning_check(config, anchors):
-    """20 steps on one fixed batch of 16 on the card; returns the losses,
-    the synchronized step time of steps 6-20 and the pipeline."""
-    pipe = trainer(seeded_net(config, anchors, torch.bfloat16, "cuda"), config)
-    batch = [torch.from_numpy(a).cuda() for a in train_batch(config, TRAIN_BATCH)]
+def learning_check(config, anchors, task="detection", steps=LEARN_STEPS):
+    """`steps` steps of a seeded net on one fixed batch of TRAIN_BATCH on
+    the card; the loss must fall. Returns the losses, the synchronized
+    step time of steps 6 to the last and (pipeline, batch)."""
+    pipe = trainer(seeded_net(config, anchors, torch.bfloat16, "cuda", task=task), config)
+    batch = [torch.from_numpy(a).cuda() for a in train_batch(config, TRAIN_BATCH, task)]
     losses = []
-    for i in range(LEARN_STEPS):
+    for i in range(steps):
         if i == 5:
             torch.cuda.synchronize()
             t0 = time.time()
         losses.append(pipe.train_step(*batch)["aggregate_loss"].detach())
     torch.cuda.synchronize()
-    step_ms = (time.time() - t0) / (LEARN_STEPS - 5) * 1e3
+    step_ms = (time.time() - t0) / (steps - 5) * 1e3
     losses = torch.stack(losses).tolist()
-    print(f"train: {LEARN_STEPS} steps on one batch of {TRAIN_BATCH}: loss {losses[0]:.4f} -> "
+    tag = "seg train" if task == "segmentation" else "train"
+    print(f"{tag}: {steps} steps on one batch of {TRAIN_BATCH}: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; fixed-batch step {step_ms:.3f} ms = "
-          f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s (host clock, synchronized, steps 6-20, "
-          f"no loader)")
-    check(all(np.isfinite(losses)), f"non-finite loss while learning: {losses}")
-    check(losses[-1] < losses[0], f"the loss did not fall in {LEARN_STEPS} steps: {losses}")
+          f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s (host clock, synchronized, steps 6-"
+          f"{steps}, no loader)")
+    check(all(np.isfinite(losses)), f"{tag}: non-finite loss while learning: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall in {steps} steps: {losses}")
     return losses, step_ms, (pipe, batch)
 
 
@@ -950,8 +1067,6 @@ def serve_trained(root, config):
     """best_model/ through run_detection_inference on 8 valid images, with
     both kernel counters read around it."""
     from vision_conglomerate_torch.infer.runner import run_detection_inference
-    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
-    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
     from vision_conglomerate_torch.utils import load_yaml
 
     best = os.path.join(root, "saved_model/detection/best_model")
@@ -960,15 +1075,14 @@ def serve_trained(root, config):
     for i in range(N_IMAGES):
         name = f"img_{i:03d}.jpg"
         os.link(os.path.join(root, "data", "valid", name), os.path.join(imgs, name))
-    matmul_bias_act.launches = 0
-    conv3x3_bias_act.launches = 0
+    zero_counters()
     out = run_detection_inference(
         imgs, os.path.join(best, "DetectionNet.ckpt.tar"),
         load_yaml(os.path.join(best, "config", "config.yaml")), batch_size=BATCH,
         score_threshold=0.01, with_summary=True, storage_path=os.path.join(root, "served"),
         device="cuda")
     torch.cuda.synchronize()
-    launches = {"matmul": matmul_bias_act.launches, "conv3x3": conv3x3_bias_act.launches}
+    launches = read_counters()
     files = sorted(os.listdir(out))
     print(f"train: served the trained best_model on {N_IMAGES} images; launches {launches}")
     for route, n in launches.items():
@@ -979,15 +1093,14 @@ def serve_trained(root, config):
 
 
 def save_learned(root, config, net):
-    """The learning phase's net (EVAL_LEARN_STEPS steps on the first
-    TRAIN_BATCH train images) as a checkpoint beside its config, and those
-    images with their labels in data/learned/; returns (checkpoint, data
-    dir)."""
+    """A learning phase's net (trained on the first TRAIN_BATCH train
+    images) as a checkpoint beside its config, and those images with their
+    labels in data/learned/; returns (checkpoint, data dir)."""
     from vision_conglomerate_torch.train.checkpoint import save_checkpoint
     from vision_conglomerate_torch.utils import save_yaml
     from vision_conglomerate_torch.weights import state_dict_to_flax
 
-    ckpt = os.path.join(root, "learned", "DetectionNet.ckpt.tar")
+    ckpt = os.path.join(root, "learned", f"{type(net).__name__}.ckpt.tar")
     state = {k: v.float().cpu() for k, v in net.state_dict().items()}
     save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
                            "NETWORK_PARAMS": state_dict_to_flax(state)})
@@ -1002,20 +1115,22 @@ def save_learned(root, config, net):
     return ckpt, dst
 
 
-def eval_phase(root, learned):
-    """eval_det on best_model/ over the valid images and on the learning
-    phase's net over the images it learned (`learned`: checkpoint, data
-    dir), each on the card (counters zeroed before and read after) and on
-    the CPU."""
+def eval_phase(root, learned, task="detection"):
+    """The eval CLI of `task` (eval_det, eval_seg) on best_model/ over the
+    valid images and on a learning phase's net over the images it learned
+    (`learned`: checkpoint, data dir), each on the card (counters zeroed
+    before and read after) and on the CPU: the JAX CLI's keys, its metrics
+    card vs CPU within their limits, the learned net's above 0."""
     import contextlib
     import io
 
-    from vision_conglomerate_torch import eval_det
-    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
-    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
+    from vision_conglomerate_torch import eval_det, eval_seg
 
-    runs = {"best_model": (os.path.join(root, "saved_model/detection/best_model/"
-                                              "DetectionNet.ckpt.tar"),
+    cli, keys, limits = ((eval_seg, SEG_EVAL_KEYS, SEG_EVAL_LIMITS) if task == "segmentation"
+                         else (eval_det, EVAL_KEYS, {"map50": EVAL_MAP50_LIMIT}))
+    name = cli.__name__.rsplit(".", 1)[-1]
+    model = "SegmentationNet" if task == "segmentation" else "DetectionNet"
+    runs = {"best_model": (os.path.join(root, f"saved_model/{task}/best_model/{model}.ckpt.tar"),
                            os.path.join(root, "data", "valid")),
             "learned": learned}
     res = {}
@@ -1023,34 +1138,33 @@ def eval_phase(root, learned):
         out, seconds = {}, {}
         for dev in ("cuda", "cpu"):
             argv = ["--weights_path", weights, "--data_dir", data_dir, "--device", dev]
-            if dev == "cuda":
-                matmul_bias_act.launches = 0
-                conv3x3_bias_act.launches = 0
+            zero_counters()
             printed = io.StringIO()
             t0 = time.time()
             with contextlib.redirect_stdout(printed):
-                out[dev] = eval_det.run(eval_det.build_parser().parse_args(argv))
+                out[dev] = cli.run(cli.build_parser().parse_args(argv))
             seconds[dev] = time.time() - t0
             if dev == "cuda":
-                launches = {"matmul": matmul_bias_act.launches,
-                            "conv3x3": conv3x3_bias_act.launches}
+                launches = read_counters()
             line = json.loads(printed.getvalue().strip().splitlines()[-1])
-            check(line == out[dev] and list(line) == EVAL_KEYS,
-                  f"eval_det ({tag}, {dev}) printed {list(line)}, want the keys {EVAL_KEYS}")
-        d = abs(out["cuda"]["map50"] - out["cpu"]["map50"])
-        print(f"eval: eval_det on {tag} over {out['cuda']['num_images']} images: mAP@50 card "
-              f"bf16 {out['cuda']['map50']} ({seconds['cuda']:.2f} s), cpu f32 "
-              f"{out['cpu']['map50']} ({seconds['cpu']:.2f} s); |d| {d:.3g} (limit "
-              f"{EVAL_MAP50_LIMIT:g}); launches {launches}")
+            check(line == out[dev] and list(line) == keys,
+                  f"{name} ({tag}, {dev}) printed {list(line)}, want the keys {keys}")
+        diffs = {k: abs(out["cuda"][k] - out["cpu"][k]) for k in limits}
+        print(f"eval: {name} on {tag} over {out['cuda']['num_images']} images: " + "; ".join(
+            f"{k} card bf16 {out['cuda'][k]}, cpu f32 {out['cpu'][k]}, |d| {diffs[k]:.3g} "
+            f"(limit {limits[k]:g})" for k in limits)
+            + f"; {seconds['cuda']:.2f} s card, {seconds['cpu']:.2f} s cpu; launches {launches}")
         for route, n in launches.items():
-            check(n > 0, f"the {route} kernel never launched in eval_det ({tag})")
-        check(d <= EVAL_MAP50_LIMIT, f"eval_det ({tag}) mAP@50 card vs cpu differs by {d:.3g}")
+            check(n > 0, f"the {route} kernel never launched in {name} ({tag})")
+        for k, lim in limits.items():
+            check(diffs[k] <= lim, f"{name} ({tag}) {k} card vs cpu differs by {diffs[k]:.3g}")
         if tag == "learned":
-            check(out["cpu"]["map50"] > 0, "eval_det gives the learned net mAP@50 0 on the "
-                                           "images it learned")
-        res[tag] = dict(map50={k: v["map50"] for k, v in out.items()}, abs_diff=d,
-                        seconds=seconds, launches=launches,
-                        num_gt_per_class=out["cpu"]["num_gt_per_class"])
+            check(all(out["cpu"][k] > 0 for k in limits),
+                  f"{name} gives the learned net {list(limits)} "
+                  f"{[out['cpu'][k] for k in limits]} on the images it learned")
+        res[tag] = dict(cuda={k: out["cuda"][k] for k in keys[:5]},
+                        cpu={k: out["cpu"][k] for k in keys[:5]}, abs_diff=diffs,
+                        seconds=seconds, launches=launches)
     return res
 
 
@@ -1140,6 +1254,264 @@ def train_phase(root, out_dir, profile):
                 profile=prof, trained_serve_launches=launches, eval=evaluated, remat=remat)
 
 
+def make_seg_checkpoint(root):
+    """A SegmentationNet at the shipped seg config with weights and
+    non-trivial BatchNorm state from SEED, as a JAX-format checkpoint;
+    returns (config, checkpoint, the train-form net on the CPU)."""
+    from vision_conglomerate_torch.models import SegmentationNet
+    from vision_conglomerate_torch.nn.blocks import init_weights_, randomize_batchnorm_
+    from vision_conglomerate_torch.train.checkpoint import save_checkpoint
+    from vision_conglomerate_torch.utils import load_yaml
+    from vision_conglomerate_torch.weights import state_dict_to_flax
+
+    config = load_yaml(os.path.join(REPO, "configs", "segmentation", "config.yaml"))
+    anchors = load_yaml(os.path.join(REPO, "configs", "segmentation", "anchors.yaml"))["anchors"]
+    g = torch.Generator().manual_seed(SEED)
+    net = SegmentationNet(NUM_CLASSES, config["model_config"], anchors=anchors, device="cpu")
+    randomize_batchnorm_(init_weights_(net, g), g)
+    ckpt = os.path.join(root, "seg", "SegmentationNet.ckpt.tar")
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
+                           "NETWORK_PARAMS": state_dict_to_flax(net.state_dict())})
+    return config, ckpt, net
+
+
+def box_iou(a, b):
+    """(n, m) IoU of xyxy boxes (numpy)."""
+    tl = np.maximum(a[:, None, :2], b[None, :, :2])
+    br = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(br - tl, 0, None), axis=2)
+    area = lambda x: np.prod(np.clip(x[:, 2:] - x[:, :2], 0, None), axis=1)  # noqa: E731
+    return inter / np.maximum(area(a)[:, None] + area(b)[None, :] - inter, 1e-9)
+
+
+def compare_seg_models(config, ckpt, img_dir):
+    """Seg card (bf16, kernels) vs CPU (f32) on one batch: decoded
+    predictions by group, protos, and the binary masks of the boxes both
+    kept; also the forward's kernel shapes and time."""
+    from vision_conglomerate_torch.data.inference import InferenceImgDataset
+    from vision_conglomerate_torch.infer.runner import detect, kept_masks, load_detection_model
+    from vision_conglomerate_torch.ops.postprocess import postprocess_detections
+
+    mc = config["model_config"]
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    ds = InferenceImgDataset(img_dir, img_wh=img_wh)
+    items = [ds[i] for i in range(BATCH)]
+    imgs = np.stack([a for a, _ in items])
+    og_hw = items[0][1].shape[:2]
+    gpu_model, _ = load_detection_model(ckpt, mc, task="segmentation", device="cuda")
+    cpu_model, _ = load_detection_model(ckpt, mc, task="segmentation", device="cpu")
+    seen, handles = record_kernel_shapes(gpu_model)
+    got, got_protos = detect(gpu_model, imgs, og_hw)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    want, want_protos = detect(cpu_model, imgs, og_hw)
+    k = gpu_model.num_masks
+    m = 3 * sum((img_wh[0] // s) * (img_wh[1] // s) for s in (8, 16, 32))
+    check(tuple(got.shape) == tuple(want.shape) == (BATCH, m, 5 + NUM_CLASSES + k),
+          f"seg pred shapes {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(tuple(got_protos.shape) == tuple(want_protos.shape)
+          == (BATCH, k, img_wh[1] // 4, img_wh[0] // 4),
+          f"proto shapes {tuple(got_protos.shape)} vs {tuple(want_protos.shape)}")
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_protos).all()),
+          "non-finite seg predictions or protos on the card")
+    stats = {}
+    c = NUM_CLASSES
+    groups = (("logits", got[..., :1 + c], want[..., :1 + c]),
+              ("boxes", got[..., 1 + c:5 + c], want[..., 1 + c:5 + c]),
+              ("coefs", got[..., 5 + c:], want[..., 5 + c:]),
+              ("protos", got_protos, want_protos))
+    for group, g, w in groups:
+        diff = (g.float().cpu() - w).abs()
+        max_lim, mean_lim = PROTO_LIMITS if group == "protos" else SEG_MODEL_LIMITS[group]
+        stats[group] = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+                            max_ref=w.abs().max().item())
+        print(f"seg serve: card bf16 vs cpu f32 {group}: max |d| {diff.max().item():.6g} "
+              f"(limit {max_lim:g}), mean |d| {diff.mean().item():.6g} (limit {mean_lim:g}), "
+              f"max |ref| {stats[group]['max_ref']:.6g}")
+        check(diff.max().item() <= max_lim and diff.mean().item() <= mean_lim,
+              f"seg card {group} differ from the CPU reference")
+    kw = dict(num_classes=c, num_masks=k, iou_threshold=0.35, score_threshold=0.01,
+              box_allowance=4.0)
+    post_g = postprocess_detections(got, **kw)
+    post_c = postprocess_detections(want, **kw)
+    ious, kept = [], 0
+    for i in range(BATCH):
+        mg = kept_masks(got_protos[i], post_g, i, og_hw, False)
+        mc_ = kept_masks(want_protos[i], post_c, i, og_hw, False)
+        bg = post_g.boxes_xyxy[i][post_g.valid[i]].cpu().numpy()
+        bc = post_c.boxes_xyxy[i][post_c.valid[i]].numpy()
+        cg = post_g.classes[i][post_g.valid[i]].cpu().numpy()
+        cc = post_c.classes[i][post_c.valid[i]].numpy()
+        kept += len(bg)
+        if len(bg) == 0 or len(bc) == 0:
+            continue
+        iou = box_iou(bg, bc) * (cg[:, None] == cc[None, :])
+        for j, jc in enumerate(iou.argmax(axis=1)):
+            if iou[j, jc] >= 0.95:  # the same box kept on both sides
+                union = (mg[j] | mc_[jc]).sum()
+                ious.append(float((mg[j] & mc_[jc]).sum() / union) if union else 1.0)
+    stats["mask_iou"] = dict(pairs=len(ious), kept_card=kept,
+                             mean=float(np.mean(ious)) if ious else None,
+                             min=float(np.min(ious)) if ious else None)
+    print(f"seg serve: binary masks card vs cpu on {len(ious)} of {kept} kept boxes that both "
+          f"kept (box IoU >= 0.95, same class): mask IoU mean {stats['mask_iou']['mean']}, "
+          f"lowest {stats['mask_iou']['min']} (reported, not gated: a pixel near 0.5 flips)")
+
+    x = torch.from_numpy(imgs).cuda()
+
+    def forward():
+        with torch.no_grad():
+            gpu_model(x.permute(0, 3, 1, 2), inference=True, og_size=og_hw)
+
+    forward()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(10):
+        forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.time() - t0) / 10 * 1e3
+    print(f"seg serve: forward + decode at batch {BATCH}: {fwd_ms:.3f} ms/batch (host clock, "
+          f"synchronized)")
+    return seen, stats, fwd_ms
+
+
+def seg_serve_phase(root, img_dirs):
+    """The seg checkpoint served through run_detection_inference on the
+    card (counters zeroed before, read after), its peak memory, the warm
+    images/s, and the card against the CPU."""
+    config, ckpt, net = make_seg_checkpoint(root)
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "seg_out"),
+                            "segmentation")
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters()
+    print(f"seg serve: {N_IMAGES} images 1280x720 at batch {BATCH} through "
+          f"run_detection_inference(task='segmentation') in {seconds:.2f} s (first call); "
+          f"launches {launches}; peak memory allocated {peak / 2 ** 30:.3f} GiB")
+    for route, n in launches.items():
+        check(n > 0, f"the {route} kernel never launched serving segmentation")
+    files = sorted(os.listdir(served))
+    check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
+          f"seg serve outputs missing: {files}")
+    t_few, _ = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "seg_few"),
+                     "segmentation")
+    t_many, _ = serve(config, ckpt, img_dirs[WARM_IMAGES], os.path.join(root, "seg_many"),
+                      "segmentation")
+    warm = (WARM_IMAGES - N_IMAGES) / (t_many - t_few)
+    print(f"seg serve: warm end to end {warm:.3f} images/s = {WARM_IMAGES - N_IMAGES} images / "
+          f"({t_many:.3f} s - {t_few:.3f} s); decode, resize, forward, NMS, mask assembly, "
+          f"drawing, PNG encode, CSV (host clock)")
+    seen, stats, fwd_ms = compare_seg_models(config, ckpt, img_dirs[N_IMAGES])
+    n_batches = -(-N_IMAGES // BATCH)
+    for route, n in launches.items():
+        per_batch = sum(1 for s_ in seen if s_[0] == route)
+        check(n == n_batches * per_batch,
+              f"seg {route}: {n} launches in {n_batches} batches, the forward routes {per_batch}")
+    return dict(first_call_seconds=seconds, launches=launches, peak_bytes=peak,
+                warm_images_per_s=warm, warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many},
+                forward_ms_per_batch=fwd_ms, model_vs_cpu=stats), seen, (config, ckpt, net)
+
+
+def seg_video_phase(root, clip, samples, seg):
+    """The clip served once with the seg checkpoint (its conf and class
+    layers rescaled on the clip, as the video phase does) at frame_skips 1:
+    24 frames in video.mp4 and both counters risen."""
+    config, _, net = seg
+    ckpt = tracking_checkpoint(os.path.join(root, "seg"), config, net, samples,
+                               name="SegmentationNet")
+    zero_counters()
+    seconds, out, df = serve_video(clip, ckpt, config, os.path.join(root, "seg_video"),
+                                   frame_skips=1, task="segmentation")
+    launches = read_counters()
+    frames = video_frames(out)
+    rows = 0 if df is None else len(df)
+    print(f"seg video: {VIDEO_FRAMES} frames 1280x720, frame_skips 1, batch "
+          f"{VIDEO_KW['batch_size']}: {seconds:.2f} s (first call); video.mp4 {frames} frames, "
+          f"output.csv {rows} track rows; launches {launches}")
+    check(frames == VIDEO_FRAMES // 2, f"seg video.mp4 has {frames} frames, want "
+                                       f"{VIDEO_FRAMES // 2}")
+    for route, n in launches.items():
+        check(n > 0, f"the {route} kernel never launched serving the seg video")
+    return dict(seconds=seconds, frames=frames, rows=rows, launches=launches)
+
+
+def write_seg_train_data(root):
+    """64 train and 16 valid 640x640 JPEGs with 2-6 filled polygons each
+    and YOLO-seg labels over 80 classes, plus temp copies of the shipped
+    seg config (data_path pointing here) and anchors."""
+    import cv2
+    import yaml
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 1)
+    poly_id = 0
+    for split, n in (("train", N_TRAIN), ("valid", N_VALID)):
+        d = os.path.join(root, "data", split)
+        os.makedirs(d)
+        for i in range(n):
+            img = rng.integers(0, 80, (640, 640, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(2, 7))):
+                cls = poly_id % NUM_CLASSES
+                poly_id += 1
+                k = int(rng.integers(5, 11))
+                ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+                rad = rng.uniform(0.06, 0.16, k)
+                cx, cy = rng.uniform(0.2, 0.8, 2)
+                pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1).clip(0, 1)
+                color = tuple(int(v) for v in np.asarray([cls * 3, 255 - cls * 3, 128 + cls]) % 256)
+                cv2.fillPoly(img, [(pts * 640).astype(np.int32)], color)
+                rows.append(" ".join([str(cls)] + [f"{v:.6f}" for v in pts.ravel()]))
+            Image.fromarray(img).save(os.path.join(d, f"img_{i:03d}.jpg"), quality=90)
+            with open(os.path.join(d, f"img_{i:03d}.txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+    with open(os.path.join(REPO, "configs", "segmentation", "config.yaml")) as f:
+        config = yaml.safe_load(f)
+    config["train_config"]["data_path"] = os.path.join(root, "data")
+    config_path = os.path.join(root, "config.yaml")
+    anchors_path = os.path.join(root, "anchors.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    with open(os.path.join(REPO, "configs", "segmentation", "anchors.yaml")) as src, \
+            open(anchors_path, "w") as dst:
+        dst.write(src.read())
+    return config, config_path, anchors_path
+
+
+def seg_train_phase(root):
+    import copy
+
+    from vision_conglomerate_torch.utils import load_yaml
+
+    config, config_path, anchors_path = write_seg_train_data(root)
+    pipe, seconds, peak = run_train_cli(root, config, config_path, anchors_path, "segmentation")
+    check_train_artifacts(root, pipe, "segmentation")
+    last = pipe._train_metrics[-1]
+    step_ms = TRAIN_BATCH / last["images_per_sec"] * 1e3
+    print(f"seg train: train_seg.run, {TRAIN_EPOCHS} epochs of {-(-N_TRAIN // TRAIN_BATCH)} "
+          f"steps at batch {TRAIN_BATCH}, 640x640, bf16: {seconds:.2f} s in all; epoch 2: "
+          f"{step_ms:.3f} ms/step = {last['images_per_sec']:.1f} images/s (host clock, "
+          f"loader included); peak memory allocated {peak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(m['aggregate_loss'], 4) for m in pipe._train_metrics]}, seg_loss "
+          f"{[round(m['seg_loss'], 4) for m in pipe._train_metrics]}, dice_score "
+          f"{[round(m['dice_score'], 4) for m in pipe._train_metrics]}")
+    anchors = load_yaml(anchors_path)["anchors"]
+    first = copy.deepcopy(config)
+    first["train_config"]["loss_config"]["cap_policy"] = "first"
+    parity = card_vs_cpu_step(first, anchors, "segmentation", SEG_TRAIN_LIMITS)
+    losses, fixed_ms, (lpipe, _) = learning_check(config, anchors, "segmentation",
+                                                  SEG_LEARN_STEPS)
+    learned = save_learned(root, config, lpipe.model)
+    del lpipe
+    evaluated = eval_phase(root, learned, "segmentation")
+    return dict(cli_seconds=seconds, epoch2_step_ms=step_ms, peak_bytes=peak,
+                train_metrics=pipe._train_metrics, eval_metrics=pipe._eval_metrics,
+                card_vs_cpu=parity, learning_losses=losses, fixed_batch_step_ms=fixed_ms,
+                eval=evaluated)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1160,15 +1532,11 @@ def main():
     build_kernels()
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
-    from vision_conglomerate_torch.ops.fused_matmul import matmul_bias_act
-
     with tempfile.TemporaryDirectory() as root:
         config, ckpt, img_dirs, net = make_inputs(root)
-        matmul_bias_act.launches = 0
-        conv3x3_bias_act.launches = 0
+        zero_counters()
         seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "out"))
-        launches = {"matmul": matmul_bias_act.launches, "conv3x3": conv3x3_bias_act.launches}
+        launches = read_counters()
         print(f"serve: {N_IMAGES} images 1280x720 at batch {BATCH} through "
               f"run_detection_inference in {seconds:.2f} s = {N_IMAGES / seconds:.2f} images/s "
               f"(smoke figure: the first call in the process, with model load and first-batch "
@@ -1188,7 +1556,10 @@ def main():
             config, ckpt, img_dirs[N_IMAGES])
         if args.profile:
             profile_forward(forward, fwd_ms, os.path.join(out_dir, "serve_profile.txt"))
-        video = video_phase(root, config, net)
+        clips, samples = write_clips(root)
+        video = video_phase(root, config, net, clips, samples)
+        seg_serve, seg_seen, seg = seg_serve_phase(root, img_dirs)
+        seg_video = seg_video_phase(root, clips[VIDEO_FRAMES], samples, seg)
     n_batches = -(-N_IMAGES // BATCH)
     for route, n in launches.items():
         per_batch = sum(1 for s in seen if s[0] == route)
@@ -1196,13 +1567,18 @@ def main():
               f"{route}: {n} launches in {n_batches} batches, the forward routes {per_batch}")
     with tempfile.TemporaryDirectory() as root:
         train = train_phase(root, out_dir, args.profile)
-    rows, summary = kernel_phase(seen, launches)
+    with tempfile.TemporaryDirectory() as root:
+        seg_train = seg_train_phase(root)
+    rows, summary = kernel_phase({"serve": (seen, launches),
+                                  "seg_serve": (seg_seen, seg_serve["launches"])})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, launches=launches, train=train, serve_seconds=seconds,
                        images=N_IMAGES, batch=BATCH, warm_images_per_s=warm,
                        warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many},
                        forward_ms_per_batch=fwd_ms, host=host, video=video,
-                       model_vs_cpu=model_stats, cases=rows, kernels=summary), f, indent=1)
+                       model_vs_cpu=model_stats, seg_serve=seg_serve, seg_video=seg_video,
+                       seg_train=seg_train, cases=rows, kernels=summary), f, indent=1,
+                  default=str)
     print(json.dumps({"kernels": summary}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

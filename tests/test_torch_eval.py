@@ -174,7 +174,8 @@ def test_eval_det_cli_prints_the_jax_keys(evaluated, capsys):
 
 @pytest.mark.parametrize("call,item", [
     (lambda e: eval_det.main(e["argv"] + ["--device", "cpu", "--quantize", "int8"]), "§A.10"),
-    (lambda e: evaluate_checkpoint_seg(e["ckpt"], e["config"], str(e["root"])), "§A.11"),
+    (lambda e: evaluate_checkpoint_seg(e["ckpt"], e["config"], str(e["root"]),
+                                       quantize="int8", device="cpu"), "§A.10"),
 ], ids=["int8", "segmentation"])
 def test_unported_evaluations_raise(evaluated, call, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -20,7 +20,13 @@ import importlib, pkgutil, sys
 import vision_conglomerate_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names + ["vision_conglomerate_torch.inference_det", "vision_conglomerate_torch.eval_det",
-                     "vision_conglomerate_torch.train_det", "chip_smoke"]:
+                     "vision_conglomerate_torch.train_det", "vision_conglomerate_torch.inference_seg",
+                     "vision_conglomerate_torch.eval_seg", "vision_conglomerate_torch.train_seg",
+                     "vision_conglomerate_torch.models.segmentation",
+                     "vision_conglomerate_torch.losses.segmentation_loss",
+                     "vision_conglomerate_torch.data.segmentation",
+                     "vision_conglomerate_torch.train.segmentation_trainer",
+                     "vision_conglomerate_torch.ops.masks", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad)

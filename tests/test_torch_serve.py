@@ -175,7 +175,7 @@ def test_no_silent_cpu(served, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(quantize="int8"), "§A.10"), (dict(task="segmentation"), "§A.11")])
+    (dict(quantize="int8"), "§A.10"), (dict(task="segmentation", quantize="int8"), "§A.10")])
 def test_unported_modes_raise(served, kwargs, item):
     root, ckpt, config = served
     with pytest.raises(NotImplementedError, match=item):

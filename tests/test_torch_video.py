@@ -72,11 +72,11 @@ def write_clip(path: str, n_frames: int = N_FRAMES, fps: int = 10):
     writer.release()
 
 
-def tracking_net(seed: int = 0, conf_mean: float = -3.0, scale: float = 2.0):
-    """A seeded port net whose conf and class logits are standardised over
-    the clip's frames: per head and output channel, mean conf_mean (0 for
-    classes) and std `scale`."""
-    net = port_detection_net(CONFIG, seed=seed)
+def tracking_net(seed: int = 0, conf_mean: float = -3.0, scale: float = 2.0, net=None):
+    """A seeded port net (or `net`) whose conf and class logits are
+    standardised over the clip's frames: per head and output channel, mean
+    conf_mean (0 for classes) and std `scale`."""
+    net = port_detection_net(CONFIG, seed=seed) if net is None else net
     x = torch.from_numpy(np.stack([frame_at(t) for t in range(N_FRAMES)]) / 255.0).float()
     feats, hooks = {}, []
     for i, head in enumerate(net.head):

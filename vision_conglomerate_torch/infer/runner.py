@@ -1,12 +1,20 @@
-"""Detection inference for images and video, the JAX package's
-infer/runner.py in PyTorch.
+"""Detection and segmentation inference for images and video, the JAX
+package's infer/runner.py in PyTorch.
 
 Checkpoint -> deploy form (RepVGG fusion + BN folding, `use_reparam=True`,
 the default) -> batched forward, decode and NMS on the device -> boxes to
 the host for drawing and the `output.csv` summary. A video goes through
 ByteTrack (`tools.bytetrack`) on the host and is written as video.mp4 with
-track ids in output.csv. Outputs go to outputs/detection/<datetime>/
+track ids in output.csv. Outputs go to outputs/<task>/<datetime>/
 (img_<n>.png or video.mp4, and output.csv), as in the JAX package.
+
+With task="segmentation" the net is a SegmentationNet: the mask
+coefficients of the rows NMS kept are assembled with the protos into
+binary masks at the output size (`ops.postprocess.assemble_instance_masks`,
+optionally cropped to the boxes with `crop_masks`) and drawn under the
+boxes. The JAX runner assembles (B, max_detections, H, W) masks at once;
+here only each image's kept rows are assembled, one image at a time, which
+gives the same masks in a fraction of the memory.
 
 A decode thread keeps the input `depth` batches ahead of the forward and,
 on `cuda`, copies each batch to the card on a side stream
@@ -15,9 +23,8 @@ compute one after another instead, as in the JAX package.
 
 On `cuda` the network runs in bf16 and its BN-folded 1x1 and stride-1 3x3
 convs run on the port's CUDA kernels; on `cpu` (only when asked for) it
-runs in f32 on the kernels' plain versions. int8 (ROADMAP §A.10),
-segmentation (§A.11) and keypoints (§A.13) are not in the port yet and
-raise.
+runs in f32 on the kernels' plain versions. int8 (ROADMAP §A.10) and
+keypoints (§A.13) are not in the port yet and raise.
 """
 import json
 import logging
@@ -35,13 +42,14 @@ from PIL import Image
 
 from ..data.inference import InferenceImgDataset, InferenceVideoDataset, SingleImgSample
 from ..device import resolve_device
-from ..models.detection import DetectionNet
+from ..models import DetectionNet, SegmentationNet
 from ..nn.blocks import cast_conv_weights
 from ..nn.reparam import deploy_transform
-from ..ops.postprocess import postprocess_detections
+from ..ops.postprocess import assemble_instance_masks, postprocess_detections
 from ..tools.bytetrack import ByteTrack, Detections
 from ..train.checkpoint import load_checkpoint
-from ..utils.drawing import apply_bboxes, apply_bboxes_from_tracks, detection_summary_df
+from ..utils.drawing import (apply_bboxes, apply_bboxes_from_tracks, apply_segments,
+                             detection_summary_df)
 from ..utils.labels import xyxy2xywh_np
 from ..weights import flax_to_state_dict
 
@@ -60,12 +68,14 @@ def load_classmap(path: str) -> Optional[List[Dict[str, Any]]]:
 
 
 def load_detection_model(weights_path: str, model_config: Dict[str, Any],
-                         num_keypoints: Optional[int] = None, use_reparam: bool = True,
-                         device: Device = None) -> Tuple[DetectionNet, int]:
-    """Rebuild the net from a checkpoint manifest (either package's pickled
-    format) and its config, in the deploy form unless `use_reparam=False`,
-    with conv weights in bf16 on cuda (what the kernels take) and f32 on
-    the CPU. Returns (model in eval mode, num_classes)."""
+                         task: str = "detection", num_keypoints: Optional[int] = None,
+                         use_reparam: bool = True, device: Device = None
+                         ) -> Tuple[DetectionNet, int]:
+    """Rebuild the net (a SegmentationNet for task="segmentation") from a
+    checkpoint manifest (either package's pickled format) and its config,
+    in the deploy form unless `use_reparam=False`, with conv weights in bf16
+    on cuda (what the kernels take) and f32 on the CPU. Returns (model in
+    eval mode, num_classes)."""
     dev = resolve_device(device)
     manifest = load_checkpoint(weights_path)
     num_classes = int(manifest["NUM_CLASSES"])
@@ -77,18 +87,19 @@ def load_detection_model(weights_path: str, model_config: Dict[str, Any],
     if use_reparam:
         state = deploy_transform(state, fuse_repvgg=fuse_repvgg)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    model = DetectionNet(num_classes, model_config, num_keypoints=num_keypoints,
-                         deploy=fuse_repvgg, folded=use_reparam, dtype=dtype, device=dev)
+    cls = SegmentationNet if task == "segmentation" else DetectionNet
+    model = cls(num_classes, model_config, num_keypoints=num_keypoints,
+                deploy=fuse_repvgg, folded=use_reparam, dtype=dtype, device=dev)
     model.load_state_dict(state)
     return cast_conv_weights(model, dtype).eval(), num_classes
 
 
 @torch.no_grad()
 def detect(model: DetectionNet, imgs: Union[np.ndarray, torch.Tensor],
-           og_hw: Tuple[int, int]) -> torch.Tensor:
-    """Decoded predictions (B, M, 5 + C) in f32 for a batch of HWC float
-    images (numpy, or a tensor already on the model's device), with boxes
-    in og_hw pixels."""
+           og_hw: Tuple[int, int]):
+    """Decoded predictions (B, M, 5 + C [+ K]) in f32 for a batch of HWC
+    float images (numpy, or a tensor already on the model's device), with
+    boxes in og_hw pixels; a SegmentationNet returns (preds, protos)."""
     x = torch.as_tensor(imgs, device=model.sm_anchors.device).permute(0, 3, 1, 2)
     return model(x, inference=True, og_size=tuple(og_hw))
 
@@ -214,6 +225,17 @@ def _prefetch_batches(batches: Iterator[Tuple[np.ndarray, np.ndarray]], device: 
         drain()
 
 
+def kept_masks(protos: torch.Tensor, post, i: int, og_hw: Tuple[int, int],
+               crop_masks: bool) -> np.ndarray:
+    """(n, H, W) bool masks, at og_hw, of the rows NMS kept in image i of a
+    batch: `protos` (Km, Hp, Wp) is that image's."""
+    valid = post.valid[i]
+    boxes = post.boxes_xyxy[i][valid][None] if crop_masks else None
+    masks = assemble_instance_masks(protos[None], post.mask_coefs[i][valid][None],
+                                    og_size=og_hw, boxes_xyxy=boxes)
+    return masks[0].cpu().numpy()
+
+
 def _open_video_writer(path: str, fps: int, hw: Tuple[int, int]) -> "cv2.VideoWriter":
     """An mp4v writer of (h, w) frames; raises when this cv2 build cannot
     write mp4v (no other codec is tried)."""
@@ -243,6 +265,7 @@ def run_detection_inference(
     max_detections: int = 300,
     storage_path: Optional[str] = None,
     quantize: Optional[str] = None,
+    crop_masks: bool = False,
     out_ext: str = "png",
     device: Device = None,
 ) -> str:
@@ -250,10 +273,12 @@ def run_detection_inference(
     returns the output directory. A video keeps every (frame_skips + 1)-th
     frame, is tracked with ByteTrack and written at `fps`, every kept frame
     included. `tracked_classes` keeps only those classes (before the
-    tracker). `save_og_size=False` renders at network resolution."""
+    tracker). `save_og_size=False` renders at network resolution. With
+    task="segmentation" each kept box's mask is drawn under the boxes;
+    `crop_masks` zeroes each mask outside its box."""
     dev = resolve_device(device)
-    if task != "detection":
-        raise NotImplementedError(f"task {task!r} is not in the port yet (ROADMAP §A.11)")
+    if task not in ("detection", "segmentation"):
+        raise ValueError(f"unknown task: {task!r} (detection|segmentation)")
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"unknown quantize mode: {quantize!r}")
     if quantize == "int8":
@@ -277,7 +302,8 @@ def run_detection_inference(
         raise OSError(f"{path} not found")
 
     model, num_classes = load_detection_model(
-        weights_path, model_config, num_keypoints=model_config.get("num_keypoints") or None,
+        weights_path, model_config, task=task,
+        num_keypoints=model_config.get("num_keypoints") or None,
         use_reparam=use_reparam, device=dev)
     storage = storage_path or os.path.join(
         "outputs", task, str(datetime.now()).replace(":", "_"))
@@ -296,8 +322,10 @@ def run_detection_inference(
     try:
         for imgs, dev_imgs, ogs in _prefetch_batches(_image_batches(items, batch_size), dev):
             og_hw = (ogs.shape[1], ogs.shape[2]) if save_og_size else (imgs.shape[1], imgs.shape[2])
+            preds = detect(model, dev_imgs, og_hw)
+            preds, protos = preds if model.with_proto_seg else (preds, None)
             post = postprocess_detections(
-                detect(model, dev_imgs, og_hw), num_classes=num_classes,
+                preds, num_classes=num_classes, num_masks=model.num_masks,
                 iou_threshold=iou_threshold, score_threshold=score_threshold,
                 box_allowance=box_allowance, max_detections=max_detections)
             boxes_np = post.boxes_xyxy.cpu().numpy()
@@ -311,8 +339,13 @@ def run_detection_inference(
                 boxes = np.concatenate(
                     [scores_np[i][:, None], classes_np[i][:, None].astype(np.float32),
                      boxes_np[i]], axis=-1)[valid_np[i]]
+                masks = None
+                if protos is not None:
+                    masks = kept_masks(protos[i], post, i, og_hw, crop_masks)
                 if tracked_classes:
-                    boxes = boxes[np.isin(boxes[:, 1], tracked_classes)]
+                    sel = np.isin(boxes[:, 1], tracked_classes)
+                    boxes = boxes[sel]
+                    masks = None if masks is None else masks[sel]
                 img = ogs[i] if save_og_size else (imgs[i] * 255).astype(np.uint8)
                 img = np.ascontiguousarray(img)
                 if boxes.shape[0] == 0:
@@ -321,6 +354,8 @@ def run_detection_inference(
                     if vwriter is not None:
                         vwriter.write(cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
                     continue
+                if masks is not None and masks.shape[0] > 0:
+                    img = apply_segments(img, masks.astype(np.uint8))
                 if tracker is None:
                     img = apply_bboxes(img, boxes, **draw_kwargs)
                     out_boxes = boxes

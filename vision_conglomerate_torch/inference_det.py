@@ -49,7 +49,7 @@ def build_parser(default_weights: str = BEST_MODEL_PATH) -> argparse.ArgumentPar
     return parser
 
 
-def run(args, config_path: str) -> str:
+def run(args, config_path: str, task: str = "detection") -> str:
     from .infer.runner import run_detection_inference
     from .utils import load_yaml
 
@@ -58,6 +58,7 @@ def run(args, config_path: str) -> str:
         path=args.path,
         weights_path=args.weights_path,
         config=load_yaml(config_path),
+        task=task,
         batch_size=args.batch_size,
         iou_threshold=args.iou_threshold,
         score_threshold=args.score_threshold,
@@ -69,6 +70,7 @@ def run(args, config_path: str) -> str:
         save_og_size=args.save_og_size,
         use_reparam=not args.no_reparam,
         quantize=None if args.quantize == "none" else args.quantize,
+        crop_masks=getattr(args, "crop_masks", False),
         out_ext=args.out_ext,
         device=args.device,
     )

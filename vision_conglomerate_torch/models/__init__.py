@@ -1,1 +1,2 @@
 from .detection import DetectionNet  # noqa: F401
+from .segmentation import SegmentationNet  # noqa: F401

@@ -3,8 +3,10 @@ models/detection.py in PyTorch.
 
 The input is an NCHW image batch (an NHWC batch permuted to NCHW is
 already channels_last). The outputs keep the JAX layout: per scale
-(N, ny, nx, na, 1 + C + 4) when `inference=False`, and the flattened,
-decoded (N, M, 5 + C) when `inference=True`.
+(N, ny, nx, na, 1 + C + 4 [+ K]) when `inference=False`, and the
+flattened, decoded (N, M, 5 + C [+ K]) when `inference=True`, where K mask
+coefficients (tanh'd in both decodes) come with the proto branch
+(`with_proto_seg`, models/segmentation.py).
 
 Quirks kept from the JAX package:
 - the stride vector is [h/ny, w/nx] and multiplies (x, y) in that order;
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from .. import registry
+from ..nn.blocks import ProtoSegModule
 
 ZERO_ANCHORS = {
     "sm": ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0)),
@@ -34,11 +37,13 @@ def make_2dgrid(nx: int, ny: int, dtype=torch.float32, device=None) -> torch.Ten
 
 
 def decode_scale(scale_pred: torch.Tensor, anchors: torch.Tensor, input_shape: Tuple[int, int],
-                 num_classes: int, inference: bool = False) -> torch.Tensor:
-    """Per-scale decode of (B, ny, nx, na, 1 + C + 4); anchors (na, 2) in 0-1.
+                 num_classes: int, num_masks: int = 0, inference: bool = False) -> torch.Tensor:
+    """Per-scale decode of (B, ny, nx, na, 1 + C + 4 + K); anchors (na, 2)
+    in 0-1.
 
     Train: xy = sig*2 - 0.5 (cell units), wh = (sig*2)^2 (anchor-relative).
-    Inference: xy and wh in input pixels.
+    Inference: xy and wh in input pixels. The K mask coefficients are
+    tanh'd in both.
     """
     _, ny, nx, _, _ = scale_pred.shape
     if inference:
@@ -51,12 +56,16 @@ def decode_scale(scale_pred: torch.Tensor, anchors: torch.Tensor, input_shape: T
         stride = torch.tensor([input_shape[0] / ny, input_shape[1] / nx], dtype=dtype, device=dev)
         xy = (xy + make_2dgrid(nx, ny, dtype, dev)) * stride
         wh = wh * anchors.to(dtype) * torch.tensor([nx, ny], dtype=dtype, device=dev) * stride
-    return torch.cat([scale_pred[..., :bbox_i], xy, wh], dim=-1)
+    parts = [scale_pred[..., :bbox_i], xy, wh]
+    if num_masks:
+        parts.append(torch.tanh(scale_pred[..., bbox_i + 4:bbox_i + 4 + num_masks]))
+    return torch.cat(parts, dim=-1)
 
 
 def rescale_preds_to_size(pred: torch.Tensor, from_wh: Tuple[int, int], to_wh: Tuple[int, int],
                           num_classes: int) -> torch.Tensor:
-    """Rescale decoded xywh boxes from one image size to another."""
+    """Rescale decoded xywh boxes from one image size to another; the
+    columns after the box (mask coefficients) pass through."""
     box_i = 1 + num_classes
     _from = torch.tensor([from_wh[0], from_wh[1]] * 2, dtype=pred.dtype, device=pred.device)
     _to = torch.tensor([to_wh[0], to_wh[1]] * 2, dtype=pred.dtype, device=pred.device)
@@ -75,7 +84,14 @@ class DetectionNet(nn.Module):
     neither the parameters nor the outputs. Parameters are f32 and the network
     computes in `dtype`; the serve form casts its conv weights to `dtype`
     (`nn.blocks.cast_conv_weights`, applied by `infer/runner.py`).
+
+    With `with_proto_seg` (SegmentationNet) the head also emits
+    `config["num_masks"]` mask coefficients per anchor, a ProtoSegModule
+    (`config["protos_config"]`) runs on n3, and forward returns
+    (preds, protos), the protos NCHW (N, K, H/4, W/4).
     """
+
+    with_proto_seg = False
 
     def __init__(self, num_classes: int, config: Dict[str, Any],
                  anchors: Optional[Dict[str, Any]] = None, num_keypoints: Optional[int] = None,
@@ -86,6 +102,7 @@ class DetectionNet(nn.Module):
             raise NotImplementedError(
                 "the keypoint branch is not in the port yet (ROADMAP §A.13)")
         self.num_classes = num_classes
+        self.num_masks = int(config.get("num_masks") or 0) if self.with_proto_seg else 0
         self.dtype = dtype
         anchors = anchors or ZERO_ANCHORS
         self.num_anchors = len(anchors["sm"])
@@ -110,8 +127,12 @@ class DetectionNet(nn.Module):
         self.neck = neck_spec.cls(bb_out, **neck_cfg, deploy=deploy, **kw)
         neck_out = neck_spec.out_channels(bb_out, **neck_cfg)
         self.head = nn.ModuleList([
-            head_spec.cls(c, num_classes, num_anchors=self.num_anchors, **head_cfg, **kw)
+            head_spec.cls(c, num_classes, num_anchors=self.num_anchors,
+                          num_masks=self.num_masks or None, **head_cfg, **kw)
             for c in neck_out[1:]])
+        if self.with_proto_seg:
+            self.proto_seg_module = ProtoSegModule(
+                neck_out[1], self.num_masks, **dict(config.get("protos_config") or {}), **kw)
 
     def forward(self, x: torch.Tensor, inference: bool = False,
                 og_size: Optional[Tuple[int, int]] = None):
@@ -120,11 +141,17 @@ class DetectionNet(nn.Module):
         heads_out = [head(fm) for head, fm in zip(self.head, (n3, n4, n5))]
         input_shape = (x.shape[2], x.shape[3])
         anchors = (self.sm_anchors, self.md_anchors, self.lg_anchors)
-        preds = [decode_scale(p, a, input_shape, self.num_classes, inference)
+        preds = [decode_scale(p, a, input_shape, self.num_classes, self.num_masks, inference)
                  for p, a in zip(heads_out, anchors)]
         if not inference:
-            return tuple(preds)
-        if og_size is not None and og_size[0] != x.shape[2] and og_size[1] != x.shape[3]:
-            from_wh, to_wh = (x.shape[3], x.shape[2]), (og_size[1], og_size[0])
-            preds = [rescale_preds_to_size(p, from_wh, to_wh, self.num_classes) for p in preds]
-        return torch.cat([p.reshape(x.shape[0], -1, self.num_classes + 5) for p in preds], dim=1)
+            preds = tuple(preds)
+        else:
+            if og_size is not None and og_size[0] != x.shape[2] and og_size[1] != x.shape[3]:
+                from_wh, to_wh = (x.shape[3], x.shape[2]), (og_size[1], og_size[0])
+                preds = [rescale_preds_to_size(p, from_wh, to_wh, self.num_classes)
+                         for p in preds]
+            final_dim = self.num_classes + 5 + self.num_masks
+            preds = torch.cat([p.reshape(x.shape[0], -1, final_dim) for p in preds], dim=1)
+        if self.with_proto_seg:
+            return preds, self.proto_seg_module(n3)
+        return preds

@@ -1,4 +1,4 @@
-"""Convolutional blocks of the detection main path, in PyTorch.
+"""Convolutional blocks of the detection and segmentation nets, in PyTorch.
 
 The JAX package's nn/blocks.py (flax, NHWC) ported to nn.Modules that keep
 NCHW parameters and run on channels_last activations. Attribute names
@@ -383,24 +383,48 @@ class CSPSPPFModule(nn.Module):
         return self.conv7(torch.cat([x1, y1], dim=1))
 
 
+class ProtoSegModule(nn.Module):
+    """YOLACT prototype branch: ConvBNorm 3x3 -> nearest x2 upsample ->
+    ConvBNorm 3x3 -> ConvBNorm 1x1 to `out_channels` prototypes, so the
+    protos come out at half the input's stride. `c_h` is not scaled by the
+    width multiple. Folded, its three convs are stride-1 ConvBNorms and run
+    on the kernels."""
+
+    def __init__(self, in_channels: int, out_channels: int = 32, c_h: int = 256,
+                 upsample_mode: str = "nearest", folded: bool = False, device=None):
+        super().__init__()
+        self.upsample_mode = upsample_mode
+        self.conv1 = ConvBNorm(in_channels, c_h, 3, folded=folded, device=device)
+        self.conv2 = ConvBNorm(c_h, c_h, 3, folded=folded, device=device)
+        self.conv3 = ConvBNorm(c_h, out_channels, 1, folded=folded, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = resize_nchw(self.conv1(x), 2.0, self.upsample_mode)
+        return self.conv3(self.conv2(out))
+
+
 class EffiDecHead(nn.Module):
-    """Efficient decoupled head. Output (N, ny, nx, na, 1 + C + 4) =
-    [conf, cls, bbox], the JAX package's layout.
+    """Efficient decoupled head. Output (N, ny, nx, na, 1 + C + 4 [+ K]) =
+    [conf, cls, bbox, masks], the JAX package's layout; the mask
+    coefficients come with `num_masks`.
 
     The shared regression tower feeds both conf and bbox and is computed
     once. The stem width is round(cin * width_multiple), not channels8.
-    The mask and keypoint branches are not in the port yet (ROADMAP §A.11,
-    §A.13); their depths, which configs may carry, have no effect here.
+    The mask branch is `masks_fmap_depth` 3x3 ConvBNorms over the stem and
+    a 1x1 `masks_layer`. The keypoint branch is not in the port yet
+    (ROADMAP §A.13); its depth, which configs may carry, has no effect here.
     """
 
     def __init__(self, in_channels: int, num_classes: int, num_anchors: int = 3,
-                 width_multiple: float = 1.0, reg_fmap_depth: int = 1,
-                 cls_fmap_depth: int = 1, masks_fmap_depth: Optional[int] = None,
+                 num_masks: Optional[int] = None, width_multiple: float = 1.0,
+                 reg_fmap_depth: int = 1, cls_fmap_depth: int = 1,
+                 masks_fmap_depth: Optional[int] = None,
                  keypoints_fmap_depth: Optional[int] = None, folded: bool = False,
                  device=None):
         super().__init__()
         self.num_classes = num_classes
         self.num_anchors = num_anchors
+        self.num_masks = num_masks or 0
         stem_out = max(round(in_channels * width_multiple), 1)
         reg_depth = max(round(reg_fmap_depth), 1)
         cls_depth = max(round(cls_fmap_depth), 1)
@@ -414,6 +438,11 @@ class EffiDecHead(nn.Module):
         self.conf_layer = nn.Conv2d(stem_out, num_anchors, 1, device=device)
         self.bbox_layer = nn.Conv2d(stem_out, num_anchors * 4, 1, device=device)
         self.cls_layer = nn.Conv2d(stem_out, num_anchors * num_classes, 1, device=device)
+        if self.num_masks:
+            m_depth = max(round(masks_fmap_depth or 1), 1)
+            self.mask_fmap_layer = nn.Sequential(*[conv3(stem_out) for _ in range(m_depth)])
+            self.masks_layer = nn.Conv2d(stem_out, num_anchors * self.num_masks, 1,
+                                         device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, ny, nx = x.shape
@@ -424,9 +453,13 @@ class EffiDecHead(nn.Module):
         def per_anchor(t, last_dim):
             return t.permute(0, 2, 3, 1).reshape(n, ny, nx, self.num_anchors, last_dim)
 
-        return torch.cat([per_anchor(conv2d(reg, self.conf_layer), 1),
-                          per_anchor(conv2d(cls_f, self.cls_layer), self.num_classes),
-                          per_anchor(conv2d(reg, self.bbox_layer), 4)], dim=-1)
+        parts = [per_anchor(conv2d(reg, self.conf_layer), 1),
+                 per_anchor(conv2d(cls_f, self.cls_layer), self.num_classes),
+                 per_anchor(conv2d(reg, self.bbox_layer), 4)]
+        if self.num_masks:
+            masks = conv2d(self.mask_fmap_layer(stem), self.masks_layer)
+            parts.append(per_anchor(masks, self.num_masks))
+        return torch.cat(parts, dim=-1)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,15 +1,19 @@
-"""Detection postprocessing on the device, the JAX package's
-ops/postprocess.postprocess_detections in PyTorch.
+"""Detection and segmentation postprocessing on the device, the JAX
+package's ops/postprocess.py in PyTorch.
 
 - scores = sigmoid(conf) * max(sigmoid(cls));
 - box_allowance adds to wh before the xywh -> xyxy conversion;
-- NMS is per image and class-agnostic.
-Keypoints (ROADMAP §A.13) and mask coefficients (§A.11) are not in the
-port yet.
+- NMS is per image and class-agnostic;
+- mask coefficients of the kept rows are gathered like the boxes, and
+  `assemble_instance_masks` turns them into binary masks:
+  sigmoid(protos . coefs), bilinear to the og size, > 0.5, optionally
+  cropped to the box.
+Keypoints (ROADMAP §A.13) are not in the port yet.
 """
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .boxes import xywh2xyxy
 from .nms import batched_nms
@@ -20,11 +24,13 @@ class PostProcessResult(NamedTuple):
     scores: torch.Tensor       # (B, K)
     classes: torch.Tensor      # (B, K) int32 argmax class
     valid: torch.Tensor        # (B, K) bool
+    mask_coefs: torch.Tensor   # (B, K, Km) or (B, K, 0)
 
 
 def postprocess_detections(
-    preds: torch.Tensor,  # (B, M, 5 + C) flattened inference-decoded preds
+    preds: torch.Tensor,  # (B, M, 5 + C + Km) flattened inference-decoded preds
     num_classes: int,
+    num_masks: int = 0,
     iou_threshold: float = 0.5,
     score_threshold: float = 0.1,
     box_allowance: float = 0.0,
@@ -52,4 +58,41 @@ def postprocess_detections(
         class_agnostic=True,
         topk_method=topk_method,
     )
-    return PostProcessResult(nms.boxes, nms.scores, nms.classes, nms.valid)
+    coefs = preds[..., 5 + c:5 + c + num_masks]
+    coefs = torch.gather(coefs, 1, nms.indices[..., None].expand(-1, -1, coefs.shape[-1]))
+    return PostProcessResult(nms.boxes, nms.scores, nms.classes, nms.valid, coefs)
+
+
+def assemble_instance_masks(
+    protos: torch.Tensor,      # (B, Km, Hp, Wp) NCHW
+    mask_coefs: torch.Tensor,  # (B, K, Km)
+    og_size: Optional[Tuple[int, int]] = None,
+    threshold: float = 0.5,
+    boxes_xyxy: Optional[torch.Tensor] = None,  # (B, K, 4), same coords as output
+) -> torch.Tensor:
+    """(B, K, H, W) bool instance masks: sigmoid(protos . coefs) in f32,
+    bilinear to og_size (half-pixel centres, antialiased when it shrinks,
+    as jax.image.resize "linear"), then > threshold. `boxes_xyxy` zeroes
+    each mask outside its box (inclusive edges), in the coordinates of the
+    output. Only the rows passed are assembled, so a caller that passes the
+    kept rows of one image pays for those alone."""
+    logits = torch.einsum("bkhw,bnk->bnhw", protos.float(), mask_coefs.float())
+    masks = torch.sigmoid(logits)
+    if og_size is not None and tuple(og_size) != tuple(masks.shape[2:]):
+        masks = F.interpolate(masks, size=(int(og_size[0]), int(og_size[1])), mode="bilinear",
+                              align_corners=False, antialias=True)
+    out = masks > threshold
+    if boxes_xyxy is not None:
+        out = out & in_box_grid(out.shape[2:], boxes_xyxy)
+    return out
+
+
+def in_box_grid(shape_hw, boxes_xyxy: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, W) bool grid, True inside each box with inclusive edges:
+    the crop of serve mask assembly and of the seg eval harness."""
+    h, w = int(shape_hw[0]), int(shape_hw[1])
+    bx = boxes_xyxy.float()
+    ys = torch.arange(h, dtype=torch.float32, device=bx.device)[None, None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=bx.device)[None, None, None, :]
+    return ((xs >= bx[..., 0, None, None]) & (xs <= bx[..., 2, None, None])
+            & (ys >= bx[..., 1, None, None]) & (ys <= bx[..., 3, None, None]))

@@ -16,7 +16,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..utils.labels import get_box_sizes_and_class_weights
+from ..utils.labels import (get_box_sizes_and_class_weights,
+                            get_box_sizes_and_class_weights_from_polygons)
 from ..utils.yaml_io import load_yaml, save_yaml
 
 logger = logging.getLogger(__name__)
@@ -116,8 +117,8 @@ def generate_anchors_and_class_weights(
     from_polygons: bool = False,
     **kwargs,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (anchors (3, 3, 2) float32, class_weights). Polygon labels
-    (segmentation) are not in the port yet (ROADMAP §A.11)."""
+    """Returns (anchors (3, 3, 2) float32, class_weights). `from_polygons`
+    reads polygon (segmentation) labels and takes each polygon's box."""
     predefined = np.concatenate([
         np.asarray(predefined_anchors["sm"], np.float32),
         np.asarray(predefined_anchors["md"], np.float32),
@@ -125,9 +126,8 @@ def generate_anchors_and_class_weights(
     ], axis=0)
     num_anchors = predefined.shape[0]
 
-    if from_polygons:
-        raise NotImplementedError("polygon labels are not in the port yet (ROADMAP §A.11)")
-    wh_data, class_weights = get_box_sizes_and_class_weights(labels_path)
+    wh_data, class_weights = (get_box_sizes_and_class_weights_from_polygons if from_polygons
+                              else get_box_sizes_and_class_weights)(labels_path)
 
     score, bpr, aat = ratio_metrics_w_extras(predefined, wh_data, threshold)
     if score >= score_tol and bpr >= bpr_tol:

@@ -6,8 +6,9 @@ Standard all-point-interpolated average precision per class (PASCAL VOC
 classes that have ground truth. Inputs are per-image detections (the
 postprocess_detections outputs, on the host) and ground truths.
 
-The segmentation and keypoint scores of the JAX module (`greedy_dice`,
-`compute_pck`) come with those heads (ROADMAP §A.11, §A.13).
+`greedy_dice` is the segmentation harness's dataset dice. The keypoint
+score of the JAX module (`compute_pck`) comes with that head (ROADMAP
+§A.13).
 """
 from typing import Dict, Sequence, Tuple
 
@@ -120,6 +121,47 @@ def compute_map(
         (_iou_matrix(np.asarray(pb), np.asarray(gb)), ps, pc, gc)
         for (pb, ps, pc), (gb, gc) in zip(predictions, ground_truths)]
     return compute_map_from_iou(per_image, num_classes, iou_threshold)
+
+
+def greedy_dice(
+    per_image: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]],
+    iou_threshold: float = 0.5,
+) -> Dict[str, float]:
+    """Dataset-level instance dice of the seg harness.
+
+    per_image: (iou (n, m), dice (n, m), scores (n,), pred_classes (n,),
+    gt_classes (m,)). Per image, predictions in descending score order take
+    the same-class ground-truth instance of highest mask IoU not yet taken,
+    when that IoU is >= iou_threshold. Returns `dice` (mean over ALL ground
+    truth, an unmatched one counting 0), `dice_matched` (mean over matched
+    pairs), `recall` (matched fraction), `num_gt` and `num_matched`.
+    """
+    total_gt = 0
+    matched_dice_sum = 0.0
+    n_matched = 0
+    for iou, dice, scores, pc, gc in per_image:
+        m = len(gc)
+        total_gt += m
+        if m == 0 or len(scores) == 0:
+            continue
+        order = np.argsort(-np.asarray(scores))
+        taken = np.zeros(m, bool)
+        for j in order:
+            cand = np.where((np.asarray(gc) == pc[j]) & ~taken)[0]
+            if cand.size == 0:
+                continue
+            best = cand[np.argmax(iou[j, cand])]
+            if iou[j, best] >= iou_threshold:
+                taken[best] = True
+                matched_dice_sum += float(dice[j, best])
+                n_matched += 1
+    return {
+        "dice": matched_dice_sum / max(total_gt, 1),
+        "dice_matched": matched_dice_sum / max(n_matched, 1),
+        "recall": n_matched / max(total_gt, 1),
+        "num_gt": total_gt,
+        "num_matched": n_matched,
+    }
 
 
 def compute_map50(predictions, ground_truths, num_classes: int):

@@ -169,10 +169,10 @@ class TrainDetectionPipeline(BasePipeline):
             n_total = len(getattr(dataloader, "dataset", ()) or ()) or None
         keys, total, count, seen = None, None, 0, 0
         timer = StepTimer()
-        for imgs, labels, mask in prefetch_to_device(dataloader, self.device):
-            bsz = int(imgs.shape[0])
+        for batch in prefetch_to_device(dataloader, self.device):
+            bsz = int(batch[0].shape[0])
             if train:
-                metrics = self.train_step(imgs, labels, mask)
+                metrics = self.train_step(*batch)
                 n_rows = bsz
             else:
                 n_rows = bsz if n_total is None else min(bsz, max(n_total - seen, 0))
@@ -180,7 +180,7 @@ class TrainDetectionPipeline(BasePipeline):
                 if n_rows == 0:
                     continue
                 image_mask = (torch.arange(bsz, device=self.device) < n_rows).float()
-                metrics = self.eval_step(imgs, labels, mask, image_mask)
+                metrics = self.eval_step(*batch, image_mask)
             keys = list(metrics)
             vec = torch.stack([v.detach() for v in metrics.values()])
             total = vec if total is None else total.add_(vec)

@@ -127,20 +127,28 @@ def build(args, config, config_path, anchors_path):
 def run(args, config, config_path, anchors_path):
     """Train for args.epochs (resuming at the checkpoint's LAST_EPOCH);
     returns the pipeline."""
+    return fit(args, *build(args, config, config_path, anchors_path))
+
+
+def fit(args, pipeline, train_dl, eval_dl):
+    """The epoch loop of the train CLIs: train, evaluate every
+    eval_interval epochs (with --map_eval, where the CLI has it), keep the
+    best model by eval loss, snapshot every checkpoint_interval epochs,
+    write the metrics CSVs and plots. Returns the pipeline."""
     from .utils.profiling import trace
 
-    pipeline, train_dl, eval_dl = build(args, config, config_path, anchors_path)
     # seeded from restored history, so a resumed run keeps its best model
     best_loss = pipeline.best_eval_loss()
     verbose = not args.no_verbose
+    profile_dir = getattr(args, "profile_dir", "")
     for epoch in range(pipeline.last_epoch, args.epochs):
         logger.info(f"epoch {epoch + 1}/{args.epochs}")
         # profile only the first trained epoch (traces are large)
-        with trace(args.profile_dir if epoch == pipeline.last_epoch else None):
+        with trace(profile_dir if epoch == pipeline.last_epoch else None):
             pipeline.train(train_dl, verbose=verbose)
         if ((epoch + 1) % args.eval_interval == 0) or (epoch + 1 == args.epochs):
             metrics = pipeline.evaluate(eval_dl, verbose=verbose)
-            if args.map_eval:
+            if getattr(args, "map_eval", False):
                 from .tools.eval_harness import evaluate_pipeline_map
 
                 map_res = evaluate_pipeline_map(pipeline, eval_dl.dataset,

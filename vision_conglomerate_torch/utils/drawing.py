@@ -1,17 +1,38 @@
 """Host-side rendering and summary tables (cv2/pandas), as in the JAX
 package's utils/drawing.py. Inputs are HWC numpy images.
 
-`apply_keypoints` comes with the keypoint head (ROADMAP §A.13) and
-`apply_segments` with segmentation (§A.11)."""
+`apply_keypoints` comes with the keypoint head (ROADMAP §A.13)."""
 from typing import Any, Dict, List, Optional
 
 import cv2
 import numpy as np
 import pandas as pd
 
+from .labels import overlap_masks
 
 FONT = cv2.FONT_HERSHEY_SIMPLEX
 FONT_SCALE = 0.4
+
+
+def apply_segments(img: np.ndarray, masks: np.ndarray, alpha: float = 0.5,
+                   colormap: Optional[np.ndarray] = None) -> np.ndarray:
+    """Overlay instance masks (1 or m, H, W) on an HWC image: a stack of
+    several is overlap-compressed first (smaller objects on top), each
+    object gets a colour (random unless `colormap` is given), and the
+    coloured layer is blended in with weight 1 - alpha."""
+    if img.dtype != np.uint8:
+        img = (img * 255).astype(np.uint8)
+    img = np.ascontiguousarray(img)
+    masks = masks.astype(np.uint8)
+    colored = np.zeros_like(img)
+    if masks.shape[0] > 1:
+        masks, _ = overlap_masks(masks)
+    masks = masks.squeeze(axis=0)
+    if colormap is None:
+        colormap = np.random.default_rng().integers(0, 255, size=(int(masks.max()) + 1, 3))
+    for obj_id in range(colormap.shape[0]):
+        colored[masks == obj_id + 1] = colormap[obj_id]
+    return cv2.addWeighted(src1=img, alpha=alpha, src2=colored, beta=1 - alpha, gamma=0)
 
 
 def apply_bboxes(img: np.ndarray, bboxes: np.ndarray, box_thickness: int = 2,

@@ -26,7 +26,7 @@ import torch
 # `name_i` (e.g. the backbone's `c3_0`) is one attribute name in both.
 SEQUENCES = frozenset({
     "head", "bottlenecks", "blocks", "conv_1_3_4",
-    "regression_fmap_layer", "classification_fmap_layer",
+    "regression_fmap_layer", "classification_fmap_layer", "mask_fmap_layer",
 })
 
 
