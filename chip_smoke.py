@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection and segmentation paths on one NVIDIA
-GPU and hold its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's detection, segmentation and TrackNet paths on
+one NVIDIA GPU and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also writes torch.profiler tables
@@ -112,10 +113,45 @@ Phases (any failure exits non-zero; nothing is caught):
    those 16 images, each on the card (both counters must rise) and on the
    CPU: the JAX CLI's keys, |card - cpu| of mask mAP@50 and dice within
    SEG_EVAL_LIMITS, and the learned net's mask mAP@50 and dice above 0.
-The kernel phase (3) runs last, over the shapes of both serve paths, and
-prints each kernel's sums per batch of each path.
+16. tracknet serve: a TrackNet at the shipped config (configs/tracknet: the
+   base architecture at width 1.0, 640x352, 3 stacked frames) with the
+   uniform init and non-trivial BatchNorm state from SEED, as a JAX-format
+   checkpoint, serves a synthetic 1280x720 clip of 40 frames (a ball on a
+   parabola over a textured background, mp4v) through
+   `run_tracknet_inference` at batch 8 and 32, and the same frames as a
+   folder of JPEGs at batch 8; the conv3x3 counter is zeroed before and
+   must have risen by 18 a batch after, and a global forward hook records
+   the shape of every launch of that run (batches of 32, 8 and the 6-window
+   tails); video.mp4 must hold 40 frames and output.csv [frame, x, y, r]
+   rows of the 38 windows only. Warm frames/s at batch 32: (40 - 16)
+   frames over the difference of a 40- and a 16-frame call, twice. Card
+   bf16 vs CPU f32 logits of the first 2 windows of a batch of 32 within
+   TN_LOGIT_LIMITS; the argmax agreement is reported, not gated (a random
+   net's argmax is fragile).
+17. tracknet train: 3 clips of 17 frames (the ball hidden in every 6th)
+   with Label.csv under a temp dir and a temp copy of the shipped config;
+   `train_tracknet.run` at batch 16 for 2 epochs with the lr schedule
+   (Adadelta, bf16 compute, f32 parameters): finite losses, the metrics
+   CSVs (every eval window scored once), 2 snapshots and best_model/ with
+   18 f32 conv kernels. One train step on 1 window card vs CPU, f32 and
+   bf16, as phase 6 (TN_TRAIN_LIMITS, BF16_COS_RATIO).
+18. tracknet learning: a fourth clip's 16 windows (heatmaps of variance
+   TN_LEARN_DIAMETER) as one fixed batch, the config's Adadelta: the loss
+   must fall in 20 steps; the step time (steps 6-20) and the peak memory
+   over them; then on until the train form hits the ball in a window (at
+   most TN_LEARN_MAX_STEPS steps): the learned net of phase 19.
+19. tracknet eval: `eval_tracknet`, train form and --deploy, on best_model/
+   over the eval split and on the learned net over its clip's eval split,
+   card and CPU: the JAX CLI's keys, |f1 card - cpu| <= TN_EVAL_F1_LIMIT,
+   conv3x3 launches in the card's --deploy runs, the learned net's f1 > 0.
+The kernel phase (3) runs last, over the shapes of the three serve paths
+(TrackNet's: every shape its serve run launched, at batch 32, 8 and 6),
+and prints each kernel's sums per batch of each path (TrackNet's per
+batch of 32); then dec_13 at batch 64 (3.7e9 output elements, past 2^31)
+against the plain conv of its last image.
 With --profile, 3 fixed-batch train steps are profiled too: device-busy
-share and the top device ops (chiprun_out/train_profile.txt).
+share and the top device ops (chiprun_out/train_profile.txt, and
+chiprun_out/tn_train_profile.txt for TrackNet).
 
 Output: per-shape lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -124,6 +160,7 @@ Details go to chiprun_out/chip_smoke.json. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -334,24 +371,50 @@ def serve(config, ckpt, img_dir, storage, task="detection"):
     return time.time() - t0, out
 
 
+def kernel_conv(m):
+    """(route, conv) of a deploy-form module whose conv runs on a kernel,
+    else None."""
+    from vision_conglomerate_torch.nn.blocks import ConvBNorm, RepVGGBlock, kernel_route
+
+    conv = None
+    if isinstance(m, ConvBNorm) and m.folded:
+        conv = m.conv
+    elif isinstance(m, RepVGGBlock) and m.deploy:
+        conv = m.conv_reparam
+    route = conv is not None and kernel_route(conv, m.activation)
+    return (route, conv) if route else None
+
+
 def record_kernel_shapes(model):
     """Forward hooks that list (route, NCHW input shape, Cout, activation)
     of every kernel-routed conv the model runs."""
-    from vision_conglomerate_torch.nn.blocks import ConvBNorm, RepVGGBlock, kernel_route
-
     seen, handles = [], []
     for m in model.modules():
-        conv = None
-        if isinstance(m, ConvBNorm) and m.folded:
-            conv = m.conv
-        elif isinstance(m, RepVGGBlock) and m.deploy:
-            conv = m.conv_reparam
-        route = conv is not None and kernel_route(conv, m.activation)
-        if route:
+        routed = kernel_conv(m)
+        if routed:
             handles.append(m.register_forward_hook(
-                lambda mod, inp, out, r=route, c=conv: seen.append(
+                lambda mod, inp, out, r=routed[0], c=routed[1]: seen.append(
                     (r, tuple(inp[0].shape), c.out_channels, mod.activation))))
     return seen, handles
+
+
+@contextlib.contextmanager
+def recording_kernel_shapes():
+    """Lists, as record_kernel_shapes does, every kernel-routed conv that
+    runs inside the block, in any model: a global forward hook, for entry
+    points that build their model themselves."""
+    seen = []
+
+    def hook(mod, inp, out):
+        routed = kernel_conv(mod)
+        if routed:
+            seen.append((routed[0], tuple(inp[0].shape), routed[1].out_channels, mod.activation))
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
 
 
 def compare_models(config, ckpt, img_dir):
@@ -451,12 +514,13 @@ def host_phases(preds, og_img):
             "draw_ms_per_image": draw_ms, "png_encode_ms_per_image": png_ms}
 
 
-def kernel_cases(paths):
+def kernel_cases(paths, extra=()):
     """Distinct kernel shapes of one batch of each path ({path: shapes
-    seen}), each with its launches per batch on every path, plus ragged
-    shapes that no path gives."""
+    seen}), each with its launches per batch on every path, plus the
+    `extra` shapes (those a path runs in other batches than the one
+    listed) and ragged shapes that no path gives."""
     counts = {path: Counter(seen) for path, seen in paths.items()}
-    shapes = set().union(*counts.values()) | {
+    shapes = set().union(*counts.values(), extra) | {
         ("matmul", (1, 64, 1025, 1), 64, "silu"),  # M = 1025, not a multiple of 128
         ("matmul", (1, 20, 100, 1), 5, "relu"),  # K, N not multiples of 8
         ("conv3x3", (1, 3, 7, 300), 5, "silu"),  # Cin, Cout not multiples of 8
@@ -517,15 +581,19 @@ def run_case(route, shape, cout, act, g):
                 tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)))
 
 
-def kernel_phase(paths):
+def kernel_phase(paths, extra=None):
     """Every shape of every path against the plain version, timed. paths:
     {path: (shapes seen in one batch's forward, launches on the path's
     run)}; "serve" is the main path of the JSON line's `launches` and
-    per-batch sums, and every other path adds its own under its name."""
+    per-batch sums, and every other path adds its own under its name.
+    extra: {shape: what runs it} for shapes that a path launches in its
+    other batches (another batch size, a tail), held and timed too but
+    left out of the per-batch sums."""
+    extra = extra or {}
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for (route, shape, cout, act), per_batch in sorted(
-            kernel_cases({p: v[0] for p, v in paths.items()}).items()):
+            kernel_cases({p: v[0] for p, v in paths.items()}, extra).items()):
         r = run_case(route, shape, cout, act, g)
         r["launches_per_batch"] = per_batch
         rows.append(r)
@@ -535,7 +603,8 @@ def kernel_phase(paths):
         else:
             desc, rate = f"B={b} {h}x{w} {cin}->{cout}", f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
         uses = ", ".join(f"{p} x{n}" for p, n in per_batch.items() if n)
-        print(f"kernel {KERNELS[route]['name']} {desc} ({uses + ' a batch' if uses else 'ragged'}): "
+        uses = uses + " a batch" if uses else extra.get((route, shape, cout, act), "ragged")
+        print(f"kernel {KERNELS[route]['name']} {desc} ({uses}): "
               f"{r['ms']:.4f} ms = {rate}, {r['ms'] / r['bound_ms']:.1f}x bound "
               f"({r['bound_ms']:.4f} by {r['bound_by']}), {r['ms'] / r['library_ms']:.2f}x library "
               f"({r['library_ms']:.4f}), plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}, "
@@ -547,6 +616,8 @@ def kernel_phase(paths):
         mine = [r for r in rows if r["route"] == route]
         entry = dict(meta)
         for path, (_, launches) in paths.items():
+            if route not in launches:  # a path without this kernel (TrackNet: no 1x1 convs)
+                continue
             check(any(r["launches_per_batch"][path] for r in mine),
                   f"no {path} shapes for {route}")
 
@@ -558,8 +629,8 @@ def kernel_phase(paths):
             sums = dict(launches=launches[route], ms=total("ms"), plain_ms=total("plain_ms"),
                         bound_ms=total("bound_ms"),
                         bound_by="bytes" if by_bytes >= total("bound_ms") / 2 else "operations",
-                        library_ms=total("library_ms"))
-            print(f"kernel {meta['name']}, {path}: per batch of {BATCH} {sums['ms']:.4f} ms, "
+                        library_ms=total("library_ms"), batch=paths[path][0][0][1][0])
+            print(f"kernel {meta['name']}, {path}: per batch of {sums['batch']} {sums['ms']:.4f} ms, "
                   f"bound {sums['bound_ms']:.4f} ({sums['bound_by']}), library "
                   f"{sums['library_ms']:.4f}, plain {sums['plain_ms']:.4f}; "
                   f"{sums['launches']} launches on the path's run")
@@ -935,7 +1006,7 @@ def no_grad_biases(net):
     from vision_conglomerate_torch.nn.blocks import ConvBNorm
 
     return {f"{n}.conv.bias" for n, m in net.named_modules()
-            if isinstance(m, ConvBNorm) and not m.folded and m.conv.bias is not None}
+            if isinstance(m, ConvBNorm) and hasattr(m, "norm") and m.conv.bias is not None}
 
 
 def train_step_result(net, config, batch):
@@ -1512,6 +1583,575 @@ def seg_train_phase(root):
                 eval=evaluated)
 
 
+# ---------------------------------------------------------------- TrackNet
+# The TrackNet phases (configs/tracknet: the base architecture at width
+# 1.0, 640x352, 3 stacked frames, bf16 compute, Adadelta). Card bf16 vs CPU
+# f32 logits of one serve batch, (max, mean) |card - cpu|: about 3x the
+# first reading on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+# 0.0129 and 8.49e-4 (max |ref| 1.07).
+TN_LOGIT_LIMITS = (0.04, 2.5e-3)
+# one TrackNet train step on 1 window against the CPU f32 step (the conv
+# biases in front of a train-mode BatchNorm left out, as in phase 6), about
+# 3x the first reading: f32 loss rel 8.66e-8, 1 - lowest cosine 5.43e-5,
+# BatchNorm 8.35e-7; bf16 loss rel 3.56e-5, BatchNorm 1.76e-3 (bf16
+# gradients held by BF16_COS_RATIO, read 1.11 and 1.02). The f32 loss
+# differs by whole ulps (one ulp of 5.5 is 8.7e-8 of it): four runs read 1,
+# 1, 1 and 2 ulps, so its limit is 3x the 2-ulp reading
+TN_TRAIN_LIMITS = {
+    "f32": {"loss_rel": 5.2e-7, "one_minus_min_cos": 1.6e-4, "bn_stats": 2.5e-6},
+    "bf16": {"loss_rel": 1.1e-4, "bn_stats": 5.3e-3},
+}
+# |f1 card bf16 - cpu f32| of eval_tracknet: the learned clip's eval split
+# holds 5 windows, and one window scored differently moves f1 by up to
+# about 0.2
+TN_EVAL_F1_LIMIT = 0.25
+TN_EVAL_KEYS = ["f1", "precision", "recall", "tp", "tn", "fp", "fn", "eval_loss",
+                "num_windows", "decode", "form", "weights"]
+TN_FRAMES, TN_SHORT = 40, 16
+TN_SERVE_BATCHES = (8, 32)
+TN_CPU_IMAGES = 2
+TN_BIG_BATCH = 64
+TN_CLIPS, TN_CLIP_FRAMES = 3, 17  # 45 windows: 31 train (1 step of 16), 14 eval
+TN_LEARN_FRAMES = TRAIN_BATCH + 2  # one clip whose 16 windows are the learning batch
+# The learning clip's heatmaps are drawn with variance TN_LEARN_DIAMETER
+# (the config's avg_diameter, 5, leaves ~21 of a window's 225,280 pixels
+# at or above 128). On the card (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+# the shipped Adadelta at variance 20 hit the ball in all 13 windows
+# where it is visible at step 200 (at 100: step 550); Adam at lr 1e-3 or
+# 1e-2 left 1-9 of the 256 class channels alive behind dec_13's ReLU and hit
+# none in 300-400 steps. f1 does not depend on the variance
+TN_LEARN_DIAMETER, TN_LEARN_MAX_STEPS, TN_LEARN_EVERY = 20, 400, 25
+
+
+def tn_background():
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:VIDEO_HW[0], 0:VIDEO_HW[1]]
+    bg = np.stack([70 + 40 * np.sin(xx / 70.0) * np.cos(yy / 90.0), 120 + 30 * np.cos(yy / 50.0),
+                   60 + 25 * np.sin((xx - yy) / 120.0)], axis=-1)
+    return np.clip(bg + rng.normal(0, 10, bg.shape), 0, 255).astype(np.uint8)
+
+
+def tn_ball(t: int, lane: int = 0):
+    """(x, y) of the ball in frame t of lane `lane`, in 1280x720 pixels: a
+    parabola across the frame."""
+    x = (90 + 27 * t + 40 * lane) * VIDEO_HW[1] / 1280
+    y = (560 - 17 * t + 0.42 * t * t - 60 * lane) * VIDEO_HW[0] / 720
+    return float(x), float(y)
+
+
+def tn_frame(background, xy, visible=True):
+    img = background.copy()
+    if visible:
+        yy, xx = np.ogrid[0:VIDEO_HW[0], 0:VIDEO_HW[1]]
+        r = 7 * VIDEO_HW[1] / 1280
+        img[(yy - xy[1]) ** 2 + (xx - xy[0]) ** 2 <= r * r] = (240, 235, 70)
+    return img
+
+
+def write_tn_clips(root):
+    """The TrackNet serve inputs: mp4v clips of TN_FRAMES and TN_SHORT
+    frames (1280x720, a ball on a textured background) and the
+    TN_FRAMES frames as a folder of JPEGs."""
+    import cv2
+
+    bg = tn_background()
+    frames = [tn_frame(bg, tn_ball(t)) for t in range(TN_FRAMES)]
+    paths = {}
+    for n in (TN_FRAMES, TN_SHORT):
+        paths[n] = os.path.join(root, f"tn_clip{n}.mp4")
+        writer = cv2.VideoWriter(paths[n], cv2.VideoWriter_fourcc(*"mp4v"), VIDEO_FPS,
+                                 (VIDEO_HW[1], VIDEO_HW[0]))
+        check(writer.isOpened(), "cv2 cannot write mp4v video on this machine")
+        for f in frames[:n]:
+            writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        writer.release()
+    folder = os.path.join(root, "tn_frames")
+    os.makedirs(folder)
+    for t, f in enumerate(frames):
+        cv2.imwrite(os.path.join(folder, f"{t:04d}.jpg"), cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    return paths, folder
+
+
+def tn_config():
+    from vision_conglomerate_torch.utils import load_yaml
+
+    return load_yaml(os.path.join(REPO, "configs", "tracknet", "config.yaml"))
+
+
+def tn_seeded_net(config, dtype=torch.float32, device="cpu", state=None):
+    """A train-form TrackNet with the config's uniform init and non-trivial
+    BatchNorm state from SEED (or the given state_dict)."""
+    from vision_conglomerate_torch.models import TrackNet
+    from vision_conglomerate_torch.nn.blocks import randomize_batchnorm_
+    from vision_conglomerate_torch.nn.initializers import uniform_conv_init
+
+    net = TrackNet(config["model_config"], dtype=dtype, device="cpu")
+    if state is None:
+        g = torch.Generator().manual_seed(SEED)
+        randomize_batchnorm_(uniform_conv_init(net, g), g)
+    else:
+        net.load_state_dict(state)
+    return net.to(device)
+
+
+def save_tn_checkpoint(path, net):
+    from vision_conglomerate_torch.train.checkpoint import save_checkpoint
+    from vision_conglomerate_torch.weights import state_dict_to_flax
+
+    state = {k: v.float().cpu() for k, v in net.state_dict().items()}
+    save_checkpoint(path, {"LAST_EPOCH": 0, "NETWORK_PARAMS": state_dict_to_flax(state)})
+    return path
+
+
+def tn_serve(path, ckpt, config, storage, batch_size, device="cuda"):
+    """One run_tracknet_inference call; (host-clock seconds, output dir,
+    video.mp4 frames, output.csv rows as a DataFrame)."""
+    import pandas as pd
+    from vision_conglomerate_torch.infer.tracknet_runner import run_tracknet_inference
+
+    t0 = time.time()
+    out = run_tracknet_inference(path, ckpt, config, batch_size=batch_size, with_summary=True,
+                                 storage_path=storage, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.time() - t0, out, video_frames(out), pd.read_csv(os.path.join(out, "output.csv"))
+
+
+def tn_serve_phase(root):
+    """The seeded TrackNet served on the card: the clip at each of
+    TN_SERVE_BATCHES and the frame folder (counters zeroed before, read
+    after: 18 conv3x3 launches a batch), video.mp4 frames and output.csv;
+    warm frames/s; then card vs CPU at batch TN_SERVE_BATCHES[-1]. Returns
+    the results, the kernel shapes of one batch of TN_SERVE_BATCHES[-1]
+    and {shape: launches} of the run's other batches."""
+    config = tn_config()
+    net = tn_seeded_net(config)
+    ckpt = save_tn_checkpoint(os.path.join(root, "tn", "TrackNet.ckpt.tar"), net)
+    clips, folder = write_tn_clips(root)
+    windows = TN_FRAMES - 2
+    zero_counters()
+    runs = {}
+    with recording_kernel_shapes() as run_seen:
+        for bs in TN_SERVE_BATCHES:
+            runs[f"video_b{bs}"] = tn_serve(clips[TN_FRAMES], ckpt, config,
+                                            os.path.join(root, f"tn_video_b{bs}"), bs)
+        runs["folder_b8"] = tn_serve(folder, ckpt, config, os.path.join(root, "tn_folder"), 8)
+    launches = {"conv3x3": read_counters()["conv3x3"]}
+    n_batches = 2 * -(-windows // 8) + -(-windows // 32)
+    print(f"tracknet serve: {TN_FRAMES} frames 1280x720 through run_tracknet_inference, the clip "
+          f"at batch {TN_SERVE_BATCHES} and the frame folder at 8: "
+          + ", ".join(f"{k} {v[0]:.2f} s" for k, v in runs.items())
+          + f" (first calls); launches {launches}")
+    check(launches["conv3x3"] == 18 * n_batches == len(run_seen),
+          f"tracknet: {launches['conv3x3']} conv3x3 launches ({len(run_seen)} recorded) in "
+          f"{n_batches} batches, want 18 each")
+    check(all(s[0] == "conv3x3" and s[3] == "relu" for s in run_seen),
+          f"tracknet deploy form routes {sorted(set(run_seen))}")
+    full = TN_SERVE_BATCHES[-1]
+    one_batch = [s for s in run_seen if s[1][0] == full][:18]
+    others = Counter(s for s in run_seen if s[1][0] != full)
+    print(f"tracknet serve: the run's conv3x3 launches by batch size "
+          f"{dict(sorted(Counter(s[1][0] for s in run_seen).items()))}")
+    stats = {}
+    for key, (_, _, frames, df) in runs.items():
+        check(frames == TN_FRAMES, f"tracknet {key}: video.mp4 has {frames} frames, want "
+                                   f"{TN_FRAMES}")
+        check(list(df.columns) == ["frame", "x", "y", "r"] and len(df) <= windows
+              and bool((df["frame"] > 2).all()) and bool(np.isfinite(df.to_numpy()).all()),
+              f"tracknet {key}: output.csv {list(df.columns)}, {len(df)} rows")
+        stats[key] = dict(rows=len(df))
+    print("tracknet serve: output.csv rows " + ", ".join(f"{k} {v['rows']}"
+                                                        for k, v in stats.items())
+          + f" of {windows} windows (a random net; video.mp4 {TN_FRAMES} frames each)")
+    warm = []
+    for i in range(2):
+        t_short = tn_serve(clips[TN_SHORT], ckpt, config, os.path.join(root, f"tn_ws{i}"), 32)[0]
+        t_long = tn_serve(clips[TN_FRAMES], ckpt, config, os.path.join(root, f"tn_wl{i}"), 32)[0]
+        warm.append((TN_FRAMES - TN_SHORT) / (t_long - t_short))
+    print(f"tracknet serve: warm {warm[0]:.3f} and {warm[1]:.3f} frames/s at batch 32, "
+          f"({TN_FRAMES} - {TN_SHORT}) frames over the difference of two calls (host clock: "
+          f"decode, 9-channel resize, forward, heatmap resize, decode, drawing, mp4 encode)")
+    cmp, fwd_ms = tn_compare_models(config, ckpt, folder, full)
+    extra = {shape: f"tracknet_serve run x{n}, batch {shape[1][0]}" for shape, n in others.items()}
+    return dict(first_call_seconds={k: v[0] for k, v in runs.items()}, launches=launches,
+                outputs=stats, warm_frames_per_s=warm, model_vs_cpu=cmp,
+                forward_batch=full, forward_ms_per_batch=fwd_ms), one_batch, extra
+
+
+def tn_compare_models(config, ckpt, folder, batch):
+    """Card (bf16, conv3x3 kernel) vs CPU (f32, plain version) logits of
+    the first TN_CPU_IMAGES windows of a batch of `batch` (gated), the
+    argmax agreement (reported) and the forward's time."""
+    from vision_conglomerate_torch.data.inference import TrackNetInferenceImgDataset
+    from vision_conglomerate_torch.infer.tracknet_runner import load_tracknet_model
+
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    ds = TrackNetInferenceImgDataset(folder, img_wh=img_wh)
+    x = np.stack([ds[i][0] for i in range(batch)])
+    gpu = load_tracknet_model(ckpt, config["model_config"], device="cuda")
+    cpu = load_tracknet_model(ckpt, config["model_config"], device="cpu")
+    xg = torch.from_numpy(x).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        got = gpu(xg)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = cpu(torch.from_numpy(x[:TN_CPU_IMAGES]).permute(0, 3, 1, 2))
+        cpu_s = time.time() - t0
+    check(tuple(got.shape) == (batch, 256, img_wh[1], img_wh[0]), f"logits {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite TrackNet logits on the card")
+    g = got[:TN_CPU_IMAGES].float().cpu()
+    del got
+    diff = (g - want).abs()
+    agree = (g.argmax(1) == want.argmax(1)).float().mean().item()
+    stats = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+                 max_ref=want.abs().max().item(), argmax_agreement=agree, cpu_seconds=cpu_s)
+    print(f"tracknet serve: card bf16 (a batch of {batch}) vs cpu f32 logits of the first "
+          f"{TN_CPU_IMAGES} windows: max |d| "
+          f"{stats['max_abs_err']:.6g} (limit {TN_LOGIT_LIMITS[0]:g}), mean |d| "
+          f"{stats['mean_abs_err']:.6g} (limit {TN_LOGIT_LIMITS[1]:g}), max |ref| "
+          f"{stats['max_ref']:.6g}; argmax agreement {agree:.4f} of the pixels (reported, not "
+          f"gated); cpu forward {cpu_s:.2f} s")
+    check(diff.max().item() <= TN_LOGIT_LIMITS[0] and diff.mean().item() <= TN_LOGIT_LIMITS[1],
+          "card TrackNet logits differ from the CPU reference")
+
+    def forward():
+        with torch.no_grad():
+            gpu(xg, inference=True, og_size=VIDEO_HW)
+
+    forward()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(10):
+        forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.time() - t0) / 10 * 1e3
+    print(f"tracknet serve: forward + argmax + resize to 1280x720 at batch {batch}: "
+          f"{fwd_ms:.3f} ms/batch (host clock, synchronized)")
+    return stats, fwd_ms
+
+
+def big_conv_case(g):
+    """dec_13 at batch TN_BIG_BATCH: an output of 3.7e9 elements (past
+    2^31); the last image held against the plain conv of that image."""
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+
+    b, h, w, cin, cout = TN_BIG_BATCH, 352, 640, 64, 256
+    x = torch.randn(b, h, w, cin, device="cuda", generator=g).bfloat16()
+    w_oihw = (torch.randn(cout, 3, 3, cin, device="cuda", generator=g) / (9 * cin) ** 0.5
+              ).bfloat16().permute(0, 3, 1, 2)
+    wt = w_oihw.permute(2, 3, 1, 0)
+    bias = torch.randn(cout, device="cuda", generator=g)
+    y = conv3x3_bias_act(x, wt, bias, "relu")
+    want = conv3x3_bias_act_plain(x[-1:], wt, bias, "relu")
+    torch.cuda.synchronize()
+    err = (y[-1:].float() - want.float()).abs()
+    ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all())
+    ms = device_ms(lambda: conv3x3_bias_act(x, wt, bias, "relu"), iters=5)
+    del y
+    x_nchw = x.permute(0, 3, 1, 2)
+    lib_ms = device_ms(lambda: F.relu(F.conv2d(x_nchw, w_oihw, bias.bfloat16(), padding=1)),
+                       iters=5)
+    nbytes = 2 * (b * h * w * cin + 9 * cin * cout + b * h * w * cout) + 4 * cout
+    flops = 2 * b * h * w * 9 * cin * cout
+    bnd, by = bound_ms(nbytes, flops)
+    print(f"kernel conv3x3_bias_act B={b} {h}x{w} {cin}->{cout} (dec_13 at batch {b}, "
+          f"{b * h * w * cout:.3g} output elements): {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{ms / bnd:.1f}x bound ({bnd:.4f} by {by}), {ms / lib_ms:.2f}x library ({lib_ms:.4f}); "
+          f"last image vs plain max |err| {err.max().item():.3g} {'ok' if ok else 'MISMATCH'}")
+    check(ok, "conv3x3 kernel disagrees with its plain version past 2^31 output elements")
+    return dict(shape=[b, cin, h, w], cout=cout, ms=ms, library_ms=lib_ms, bound_ms=bnd,
+                bound_by=by, max_abs_err=err.max().item(), output_elements=b * h * w * cout)
+
+
+def write_tn_train_data(root):
+    """TN_CLIPS clips of TN_CLIP_FRAMES 1280x720 JPEG frames under
+    data/game1/Clip*/ with Label.csv (the ball hidden, visibility 0, in
+    every 6th frame), a clip of TN_LEARN_FRAMES frames under
+    learned/game1/Clip1/, and a temp copy of the shipped config with
+    data_path pointing here."""
+    import cv2
+    import pandas as pd
+    import yaml
+
+    bg = tn_background()
+
+    def clip(d, n, lane):
+        os.makedirs(d)
+        rows = []
+        for t in range(n):
+            xy = tn_ball(t, lane)
+            vis = int(t % 6 != 5)
+            name = f"{t:04d}.jpg"
+            cv2.imwrite(os.path.join(d, name),
+                        cv2.cvtColor(tn_frame(bg, xy, bool(vis)), cv2.COLOR_RGB2BGR))
+            rows.append({"file name": name, "visibility": vis, "x-coordinate": xy[0] if vis else 0,
+                         "y-coordinate": xy[1] if vis else 0, "status": 0})
+        pd.DataFrame(rows).to_csv(os.path.join(d, "Label.csv"), index=False)
+
+    for c in range(TN_CLIPS):
+        clip(os.path.join(root, "data", "game1", f"Clip{c + 1}"), TN_CLIP_FRAMES, c)
+    clip(os.path.join(root, "learned", "game1", "Clip1"), TN_LEARN_FRAMES, 1)
+    with open(os.path.join(REPO, "configs", "tracknet", "config.yaml")) as f:
+        config = yaml.safe_load(f)
+    config["train_config"]["data_path"] = os.path.join(root, "data")
+    config_path = os.path.join(root, "config.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    return config, config_path
+
+
+def tn_pipe(net, config):
+    from vision_conglomerate_torch.train.optim import make_optimizer
+    from vision_conglomerate_torch.train.tracknet_trainer import TrainTrackNetPipeline
+
+    opt, _ = make_optimizer(config["train_config"]["optimizer_config"], net)
+    pipe = TrainTrackNetPipeline(net, opt, init_scheme=None)
+    net.train()
+    return pipe
+
+
+def tn_batch(config, data_path, n):
+    """The first n windows (uint8 frames, heatmaps, others) of the seed-42
+    train split of data_path, collated."""
+    from vision_conglomerate_torch.train_tracknet import make_datasets
+
+    ds, _ = make_datasets(config, data_path, split_percentage=1.0)
+    return ds.collate_fn([ds[i] for i in range(n)])
+
+
+def tn_step_result(net, config, batch):
+    dev = next(net.parameters()).device
+    loss = tn_pipe(net, config).train_step(
+        *[torch.from_numpy(a).to(dev) for a in batch[:2]]).item()
+    grads = {n: p.grad.float().cpu() for n, p in net.named_parameters() if p.requires_grad}
+    stats = {n: b.float().cpu() for n, b in net.named_buffers() if "running_" in n}
+    return loss, grads, stats
+
+
+def tn_card_vs_cpu_step(config):
+    """One seeded TrackNet, one window: the train step on the card in f32
+    and bf16 against the CPU f32 step, as phase 6 does."""
+    cpu = tn_seeded_net(config)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    batch = tn_batch(config, config["train_config"]["data_path"], 1)
+    skip = no_grad_biases(cpu)
+    t0 = time.time()
+    ref = tn_step_result(cpu, config, batch)
+    cpu_s = time.time() - t0
+    names = [n for n in ref[1] if n not in skip]
+    steps = {tag: tn_step_result(tn_seeded_net(config, dtype, dev, state), config, batch)
+             for tag, dtype, dev in (("f32", torch.float32, "cuda"),
+                                     ("bf16", torch.bfloat16, "cuda"),
+                                     ("cpu_bf16", torch.bfloat16, "cpu"))}
+    out = {tag: compare_steps(r, ref, names) for tag, r in steps.items()}
+    for tag, r in out.items():
+        print(f"tracknet train: one step on 1 window at 640x352, {tag} vs cpu f32: loss "
+              f"{r['loss']:.6f} vs {r['loss_ref']:.6f}, rel {r['loss_rel']:.3e}; 1 - gradient "
+              f"cosine: lowest {r['one_minus_min_cos']:.3e} ({r['worst_grad']}), median "
+              f"{r['one_minus_median_cos']:.3e}, all as one vector "
+              f"{r['one_minus_global_cos']:.3e}; BatchNorm running stats max |d| "
+              f"{r['bn_stats']:.3e}" + (f"; limits {TN_TRAIN_LIMITS[tag]}"
+                                        if tag in TN_TRAIN_LIMITS else ""))
+    print(f"tracknet train: {len(names)} parameters compared, {len(skip)} conv biases before "
+          f"BatchNorm left out; the cpu f32 step took {cpu_s:.2f} s")
+    for key in ("one_minus_global_cos", "one_minus_median_cos"):
+        ratio = out["bf16"][key] / out["cpu_bf16"][key]
+        out["bf16"][key + "_ratio"] = ratio
+        print(f"tracknet train: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} "
+              f"(limit {BF16_COS_RATIO:g})")
+        check(bool(np.isfinite(ratio)) and ratio <= BF16_COS_RATIO,
+              f"tracknet: card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's "
+              f"bf16 ({key})")
+    for tag, lims in TN_TRAIN_LIMITS.items():
+        for key, lim in lims.items():
+            v = out[tag][key]
+            check(bool(np.isfinite(v)) and v <= lim,
+                  f"card {tag} tracknet step differs from the CPU: {key} {v:.3e} > {lim:g}")
+    return out
+
+
+def tn_hits(pipe, batch):
+    """Windows of the batch whose train-form argmax heatmap decodes (the
+    centroid of the pixels >= 128) within 4 px of the ball."""
+    frames, heatmaps, others = batch
+    _, _, cx, cy, found = pipe.eval_step(frames, heatmaps)
+    pipe.model.train()
+    cx, cy, found, others = cx.cpu().numpy(), cy.cpu().numpy(), found.cpu().numpy(), \
+        others.cpu().numpy()
+    vis = others[:, 0] > 0
+    return int((found & vis & (np.hypot(cx - others[:, 1], cy - others[:, 2]) <= 4)).sum())
+
+
+def tn_learning(root, config, out_dir, profile):
+    """The seeded net on the learning clip's 16 windows (heatmaps of
+    variance TN_LEARN_DIAMETER) as one fixed batch on the card, with the
+    config's Adadelta: the loss must fall in LEARN_STEPS steps (steps 6 on
+    give the step time, and the peak memory is read over them); then on
+    until its train form hits the ball in a window (at most
+    TN_LEARN_MAX_STEPS steps). Returns the stats and the learned net."""
+    import copy
+
+    wide = copy.deepcopy(config)
+    wide["train_config"]["img_config"]["avg_diameter"] = TN_LEARN_DIAMETER
+    pipe = tn_pipe(tn_seeded_net(config, torch.bfloat16, "cuda"), config)
+    batch = [torch.from_numpy(a).cuda()
+             for a in tn_batch(wide, os.path.join(root, "learned"), TRAIN_BATCH)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(LEARN_STEPS):
+        if i == 5:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        losses.append(pipe.train_step(*batch[:2]))
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / (LEARN_STEPS - 5) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    print(f"tracknet train: {LEARN_STEPS} steps on one batch of {TRAIN_BATCH} windows: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; fixed-batch step {step_ms:.3f} ms = "
+          f"{TRAIN_BATCH / step_ms * 1e3:.1f} windows/s (host clock, synchronized, steps 6-"
+          f"{LEARN_STEPS}, no loader); peak memory allocated {peak / 2 ** 30:.3f} GiB")
+    check(all(np.isfinite(losses)), f"tracknet: non-finite loss while learning: {losses}")
+    check(losses[-1] < losses[0], f"tracknet: the loss did not fall: {losses}")
+    prof = (profile_train(pipe, batch[:2], step_ms, os.path.join(out_dir, "tn_train_profile.txt"))
+            if profile else None)
+    steps, hits = LEARN_STEPS, 0
+    t0 = time.time()
+    while steps < TN_LEARN_MAX_STEPS:
+        for _ in range(TN_LEARN_EVERY):
+            pipe.train_step(*batch[:2])
+        steps += TN_LEARN_EVERY
+        hits = tn_hits(pipe, batch)
+        if hits:
+            break
+    print(f"tracknet train: after {steps} steps (the last {steps - LEARN_STEPS} in "
+          f"{time.time() - t0:.1f} s) the train form hits the ball in {hits} of {TRAIN_BATCH} "
+          f"windows")
+    check(hits > 0, f"tracknet: no window hit after {steps} steps on one batch")
+    return dict(losses=losses, fixed_batch_step_ms=step_ms, peak_bytes=peak, profile=prof,
+                learn_steps=steps, hits=hits), pipe.model
+
+
+def tn_eval_phase(root, config_path, learned_ckpt):
+    """eval_tracknet, train form and --deploy, on best_model/ over the
+    data's eval split and on the learned net over the learning clip's,
+    each on the card and the CPU: the JAX CLI's keys, |f1 card - cpu| <=
+    TN_EVAL_F1_LIMIT, conv3x3 launches in the card's deploy runs, and the
+    learned net's f1 above 0."""
+    import contextlib
+    import io
+
+    from vision_conglomerate_torch import eval_tracknet
+
+    runs = {"best_model": (os.path.join(root, "saved_model/tracknet/best_model/TrackNet.ckpt.tar"),
+                           []),
+            "learned": (learned_ckpt, ["--config_path", config_path,
+                                       "--data_path", os.path.join(root, "learned")])}
+    res = {}
+    for tag, (weights, extra) in runs.items():
+        for form in ([], ["--deploy"]):
+            out, seconds = {}, {}
+            for dev in ("cuda", "cpu"):
+                argv = ["--weights_path", weights, "--device", dev] + extra + form
+                zero_counters()
+                printed = io.StringIO()
+                t0 = time.time()
+                with contextlib.redirect_stdout(printed):
+                    out[dev] = eval_tracknet.run(eval_tracknet.build_parser().parse_args(argv))
+                seconds[dev] = time.time() - t0
+                if dev == "cuda":
+                    launches = read_counters()["conv3x3"]
+                line = json.loads(printed.getvalue().strip().splitlines()[-1])
+                check(line == out[dev] and list(line) == TN_EVAL_KEYS,
+                      f"eval_tracknet ({tag}, {dev}) printed {list(line)}")
+            name = f"{tag} {out['cuda']['form']}"
+            d = abs(out["cuda"]["f1"] - out["cpu"]["f1"])
+            print(f"tracknet eval: eval_tracknet on {name} over {out['cuda']['num_windows']} "
+                  f"windows: f1 card bf16 {out['cuda']['f1']} (tp {out['cuda']['tp']}, fp "
+                  f"{out['cuda']['fp']}, tn {out['cuda']['tn']}, fn {out['cuda']['fn']}), cpu f32 "
+                  f"{out['cpu']['f1']} (tp {out['cpu']['tp']}), |d| {d:.3g} (limit "
+                  f"{TN_EVAL_F1_LIMIT:g}); eval loss {out['cuda']['eval_loss']} vs "
+                  f"{out['cpu']['eval_loss']}; {seconds['cuda']:.2f} s card, {seconds['cpu']:.2f} "
+                  f"s cpu; conv3x3 launches {launches}")
+            check(d <= TN_EVAL_F1_LIMIT, f"eval_tracknet ({name}) f1 card vs cpu differs by {d}")
+            if form:
+                check(launches > 0, f"the conv3x3 kernel never launched in eval_tracknet ({name})")
+            if tag == "learned":
+                check(out["cuda"]["f1"] > 0 and out["cpu"]["f1"] > 0,
+                      f"eval_tracknet gives the learned net f1 {out['cuda']['f1']} (card), "
+                      f"{out['cpu']['f1']} (cpu)")
+            res[name] = dict(cuda=out["cuda"], cpu=out["cpu"], f1_abs_diff=d, seconds=seconds,
+                             launches=launches)
+    return res
+
+
+def tn_train_phase(root, out_dir, profile):
+    """train_tracknet.run at batch 16 for 2 epochs on the card, its
+    artifacts; one step card vs CPU; the learning check; eval_tracknet."""
+    import pandas as pd
+    from vision_conglomerate_torch import train_tracknet
+    from vision_conglomerate_torch.train.checkpoint import load_checkpoint
+
+    config, config_path = write_tn_train_data(root)
+    args = train_tracknet.build_parser().parse_args(
+        ["--batch_size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS), "--checkpoint_interval",
+         "1", "--lr_schedule", "--no_verbose", "--config_path", config_path, "--device", "cuda"])
+    cwd = os.getcwd()
+    os.chdir(root)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        pipe = train_tracknet.run(args, config, config_path)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    seconds, peak = time.time() - t0, torch.cuda.max_memory_allocated()
+    hist, evals = pipe._train_metrics, pipe._eval_metrics
+    check(len(hist) == TRAIN_EPOCHS and len(evals) == TRAIN_EPOCHS,
+          f"tracknet: {len(hist)} train and {len(evals)} eval records")
+    check(all(np.isfinite(m["loss"]) for m in hist + evals), f"tracknet: losses {hist} {evals}")
+    best = os.path.join(root, "saved_model/tracknet/best_model/TrackNet.ckpt.tar")
+    for rel in ("metrics/tracknet/train_metrics.csv", "metrics/tracknet/eval_metrics.csv",
+                "saved_model/tracknet/best_model/config/config.yaml"):
+        check(os.path.isfile(os.path.join(root, rel)), f"tracknet train artifact missing: {rel}")
+    ev = pd.read_csv(os.path.join(root, "metrics/tracknet/eval_metrics.csv"))
+    check(list(ev.columns) == ["loss", "tp", "tn", "fp", "fn", "precision", "recall", "f1"]
+          and len(ev) == TRAIN_EPOCHS, f"tracknet eval_metrics.csv: {list(ev.columns)}")
+    windows = int(ev[["tp", "tn", "fp", "fn"]].iloc[-1].sum())
+    n_eval = TN_CLIPS * (TN_CLIP_FRAMES - 2) - int(0.7 * TN_CLIPS * (TN_CLIP_FRAMES - 2))
+    check(windows == n_eval, f"tracknet eval scored {windows} windows, want {n_eval}")
+    snaps = [f for _, _, fs in os.walk(os.path.join(root, "saved_model/tracknet/checkpoints"))
+             for f in fs if f.endswith(".ckpt.tar")]
+    check(len(snaps) == TRAIN_EPOCHS, f"tracknet snapshots: {snaps}")
+    kernels = [v for k, v in _leaves(load_checkpoint(best)["NETWORK_PARAMS"]["params"])
+               if k == "kernel"]
+    check(len(kernels) == 18 and all(k.dtype == np.float32 for k in kernels),
+          f"tracknet best model: {len(kernels)} conv kernels")
+    step_ms = TRAIN_BATCH / hist[-1]["images_per_sec"] * 1e3
+    print(f"tracknet train: train_tracknet.run, {TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH}, "
+          f"640x352, bf16, Adadelta: {seconds:.2f} s in all; epoch 2: {step_ms:.3f} ms/step "
+          f"(host clock, loader included); peak memory allocated {peak / 2 ** 30:.3f} GiB; "
+          f"train losses {[round(m['loss'], 4) for m in hist]}, eval losses "
+          f"{[round(m['loss'], 4) for m in evals]}, {windows} eval windows scored")
+    parity = tn_card_vs_cpu_step(config)
+    learning, net = tn_learning(root, config, out_dir, profile)
+    learned = save_tn_checkpoint(os.path.join(root, "learned_ckpt", "TrackNet.ckpt.tar"), net)
+    del net
+    evaluated = tn_eval_phase(root, config_path, learned)
+    return dict(cli_seconds=seconds, epoch2_step_ms=step_ms, peak_bytes=peak,
+                train_metrics=hist, eval_metrics=evals, card_vs_cpu=parity, learning=learning,
+                eval=evaluated)
+
+
+def _leaves(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield k, v
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1569,15 +2209,28 @@ def main():
         train = train_phase(root, out_dir, args.profile)
     with tempfile.TemporaryDirectory() as root:
         seg_train = seg_train_phase(root)
+    with tempfile.TemporaryDirectory() as root:
+        tn_serve_res, tn_seen, tn_extra = tn_serve_phase(root)
+    with tempfile.TemporaryDirectory() as root:
+        tn_train = tn_train_phase(root, out_dir, args.profile)
     rows, summary = kernel_phase({"serve": (seen, launches),
-                                  "seg_serve": (seg_seen, seg_serve["launches"])})
+                                  "seg_serve": (seg_seen, seg_serve["launches"]),
+                                  "tracknet_serve": (tn_seen, tn_serve_res["launches"])},
+                                 tn_extra)
+    big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
+    for entry in summary:
+        if entry["name"] == "conv3x3_bias_act":
+            entry.update({f"tracknet_dec13_b{TN_BIG_BATCH}_{k}": big[k]
+                          for k in ("ms", "library_ms", "bound_ms", "max_abs_err")})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, launches=launches, train=train, serve_seconds=seconds,
                        images=N_IMAGES, batch=BATCH, warm_images_per_s=warm,
                        warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many},
                        forward_ms_per_batch=fwd_ms, host=host, video=video,
                        model_vs_cpu=model_stats, seg_serve=seg_serve, seg_video=seg_video,
-                       seg_train=seg_train, cases=rows, kernels=summary), f, indent=1,
+                       seg_train=seg_train, tracknet_serve=tn_serve_res,
+                       tracknet_train=tn_train, tracknet_dec13_big=big, cases=rows,
+                       kernels=summary), f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))
     print(f"card: {card}")

@@ -26,7 +26,15 @@ for name in names + ["vision_conglomerate_torch.inference_det", "vision_conglome
                      "vision_conglomerate_torch.losses.segmentation_loss",
                      "vision_conglomerate_torch.data.segmentation",
                      "vision_conglomerate_torch.train.segmentation_trainer",
-                     "vision_conglomerate_torch.ops.masks", "chip_smoke"]:
+                     "vision_conglomerate_torch.ops.masks",
+                     "vision_conglomerate_torch.train_tracknet",
+                     "vision_conglomerate_torch.eval_tracknet",
+                     "vision_conglomerate_torch.inference_tracknet",
+                     "vision_conglomerate_torch.models.tracknet",
+                     "vision_conglomerate_torch.ops.heatmap",
+                     "vision_conglomerate_torch.data.tracknet",
+                     "vision_conglomerate_torch.train.tracknet_trainer",
+                     "vision_conglomerate_torch.infer.tracknet_runner", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad)

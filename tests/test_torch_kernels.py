@@ -113,7 +113,8 @@ def _bad_operands(kernel: str, fault: str):
     else:
         x, w, b = (torch.zeros(1, 4, 4, 8, dtype=bf16), torch.zeros(3, 3, 8, 5, dtype=bf16),
                    torch.zeros(5))
-        big = (torch.empty(1, 2 ** 14, 2 ** 14, 8, dtype=bf16, device="meta"),
+        # M = B*H*W = 2^31 pixel rows (the conv's 32-bit index)
+        big = (torch.empty(8, 2 ** 14, 2 ** 14, 8, dtype=bf16, device="meta"),
                torch.empty(3, 3, 8, 5, dtype=bf16, device="meta"), torch.empty(5, device="meta"))
     if fault == "device":
         b = b.to("meta")

@@ -4,8 +4,9 @@
 // Replaces vision_conglomerate_tpu/ops/conv_pallas.py:conv3x3_bias_act (the
 // Pallas kernel `_conv3x3_kernel`): y = act(conv3x3(x, w) + b) with f32
 // accumulation over the 9 taps and an f32 epilogue, one bf16 store. The
-// serve path calls it for every BN-folded stride-1 3x3 conv and every fused
-// RepVGG `conv_reparam`.
+// serve paths call it for every BN-folded stride-1 3x3 conv and every fused
+// RepVGG `conv_reparam`: all 18 convs of TrackNet (ReLU), the detector's
+// and the seg net's 3x3s (SiLU).
 //
 // Bound on the H100: at the detector's serve shapes (batch 4, 160^2..20^2,
 // Cin 32..768, Cout 32..512) FLOPs per byte run from ~144 at 32 channels to

@@ -44,6 +44,10 @@
 // - Where K or Cin is not a multiple of 8 (or a pointer is not 16-byte
 //   aligned), neither TMA nor 16-byte copies apply: the same ring is
 //   filled with element loads and shared stores.
+// - Indexing: the pixel row m, M, N, K and the TMA coordinates are 32-bit;
+//   element offsets into x and y are 64-bit, so the conv's input and
+//   output may hold 2^31 elements or more (TrackNet's full-resolution
+//   256-channel conv at batch 64 writes 3.7e9).
 #pragma once
 
 #include <cuda.h>
@@ -333,7 +337,7 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
       dx = tap % 3 - 1;
     }
     if ((unsigned)(py[i] + dy) >= (unsigned)H || (unsigned)(px[i] + dx) >= (unsigned)W) return zero;
-    return x[(pix[i] + dy * W + dx) * C + c];
+    return x[((long long)pix[i] + dy * W + dx) * C + c];
   };
 
   // Copy K tile kt of A and W into ring stage `stage`.
@@ -354,7 +358,8 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
         for (int i = 0; i < A_ROWS; ++i) {
           const bool ok = k < K && (unsigned)(py[i] + dy) < (unsigned)H &&
                           (unsigned)(px[i] + dx) < (unsigned)W;
-          cp_async16(sa + swizzle128(r0 + i * ROW_STEP, j), x + (ok ? pix[i] * C + shift : 0), ok);
+          cp_async16(sa + swizzle128(r0 + i * ROW_STEP, j),
+                     x + (ok ? (long long)pix[i] * C + shift : 0), ok);
         }
       }
     } else {

@@ -22,23 +22,27 @@ class DataLoader:
 
     pad_last="wrap" fills the final partial batch with samples wrapped from
     the epoch's start, so every batch has one shape; the padding rows are
-    always the trailing rows of the final batch.
+    always the trailing rows of the final batch. drop_last leaves the final
+    partial batch out instead.
     """
 
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = False,
                  collate_fn: Optional[Callable] = None, num_workers: int = 8,
-                 pad_last: str = "none", seed: int = 0):
+                 pad_last: str = "none", seed: int = 0, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.collate_fn = collate_fn or getattr(dataset, "collate_fn")
         self.num_workers = max(1, num_workers)
         self.pad_last = pad_last
+        self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
-        n = math.ceil(len(self.dataset) / self.batch_size)
-        return max(1, n) if self.pad_last == "wrap" else n
+        n = len(self.dataset) / self.batch_size
+        if self.pad_last == "wrap":
+            return max(1, math.ceil(n))
+        return math.floor(n) if self.drop_last else math.ceil(n)
 
     def __iter__(self) -> Iterator:
         order = np.arange(len(self.dataset))

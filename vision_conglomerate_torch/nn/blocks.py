@@ -1,4 +1,5 @@
-"""Convolutional blocks of the detection and segmentation nets, in PyTorch.
+"""Convolutional blocks of the detection, segmentation and TrackNet nets,
+in PyTorch.
 
 The JAX package's nn/blocks.py (flax, NHWC) ported to nn.Modules that keep
 NCHW parameters and run on channels_last activations. Attribute names
@@ -25,7 +26,8 @@ accumulator.
 
 Rematerialization. The backbone and neck call their stages through
 `stage`, which with `remat` checkpoints each stage for the backward pass,
-the units the JAX package wraps in `nn.blocks.maybe_remat`.
+the units the JAX package wraps in `nn.blocks.maybe_remat`; TrackNet calls
+each of its convs so.
 """
 import contextlib
 import math
@@ -174,25 +176,32 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class ConvBNorm(nn.Module):
     """Conv2d + BatchNorm (f32) + activation; `folded=True` is the deploy
-    form, whose conv carries the folded BatchNorm and always has a bias."""
+    form, whose conv carries the folded BatchNorm and always has a bias.
+
+    `no_batchnorm=True` is a conv with its bias, then the activation in the
+    activations' dtype, with no BatchNorm (TrackNet's `dec_13`); its deploy
+    form (`folded=True`) is the same conv on the kernel route."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
                  stride: IntPair = 1, padding: Optional[IntPair] = None,
                  activation: Optional[str] = "silu", use_bias: bool = True,
-                 folded: bool = False, device=None):
+                 no_batchnorm: bool = False, folded: bool = False, device=None):
         super().__init__()
         k = _pair(kernel_size)
         p = (k[0] // 2, k[1] // 2) if padding is None else _pair(padding)
         self.activation = activation
         self.folded = folded
+        self.no_batchnorm = no_batchnorm
         self.conv = nn.Conv2d(in_channels, out_channels, k, _pair(stride), p,
                               bias=use_bias or folded, device=device)
-        if not folded:
+        if not (folded or no_batchnorm):
             self.norm = BatchNorm2d(out_channels, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded:
             return conv_bias_act(x, self.conv, self.activation)
+        if self.no_batchnorm:
+            return apply_activation(conv2d(x, self.conv), self.activation)
         y = apply_activation(self.norm(conv2d(x, self.conv).float()), self.activation)
         return y.to(x.dtype)
 

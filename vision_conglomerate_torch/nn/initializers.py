@@ -1,6 +1,10 @@
-"""Weight initialisation of the detection net, as in the JAX package's
-nn/initializers.py: every conv kernel Xavier-uniform, U(+-sqrt(6 / (fan_in +
-fan_out))) with fan = channels * kh * kw, and every conv bias 0.01.
+"""Weight initialisation, as in the JAX package's nn/initializers.py:
+
+- "xavier" (detection and segmentation): every conv kernel Xavier-uniform,
+  U(+-sqrt(6 / (fan_in + fan_out))) with fan = channels * kh * kw, and
+  every conv bias 0.01;
+- "uniform" (TrackNet): every conv kernel U(-0.05, 0.05), every conv bias 0.
+
 BatchNorm stays at weight 1, bias 0.
 
 The draws come from an explicit torch.Generator on the CPU. The JAX package
@@ -29,4 +33,18 @@ def xavier_conv_init(module: nn.Module, generator: torch.Generator,
     return module
 
 
-INIT_SCHEMES = {"xavier": xavier_conv_init}
+def uniform_conv_init(module: nn.Module, generator: torch.Generator,
+                      low: float = -0.05, high: float = 0.05) -> nn.Module:
+    """Re-draw every conv of `module` in place (module order): kernels
+    U(low, high), biases 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if not isinstance(m, nn.Conv2d):
+                continue
+            m.weight.copy_(torch.empty(m.weight.shape).uniform_(low, high, generator=generator))
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
+
+
+INIT_SCHEMES = {"xavier": xavier_conv_init, "uniform": uniform_conv_init}

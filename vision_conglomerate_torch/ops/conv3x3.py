@@ -4,8 +4,9 @@ Replaces the TPU kernel vision_conglomerate_tpu/ops/conv_pallas.py
 :conv3x3_bias_act (Pallas body `_conv3x3_kernel`) with the CUDA kernel in
 csrc/conv3x3_bias_act.cu: an implicit GEMM over M = B*H*W, K = 9*Cin,
 N = Cout with f32 accumulation and epilogue and one store in x.dtype. The
-serve path calls it for every BN-folded stride-1 3x3 conv and every fused
-RepVGG `conv_reparam`.
+serve paths call it for every BN-folded stride-1 3x3 conv and every fused
+RepVGG `conv_reparam`, TrackNet's 18 convs included. x and y may hold 2^31
+elements or more; M = B*H*W may not.
 
 Bound on the H100 at the detector's shapes (H*W 160^2..20^2, Cin 32..768,
 Cout 32..512): the tensor cores, from ~144 FLOPs per byte at 32 channels
@@ -43,14 +44,26 @@ def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return apply_activation(y, activation).to(x.dtype).permute(0, 2, 3, 1)
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            activation: Optional[str]) -> torch.Tensor:
+def check_conv_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    activation: Optional[str]) -> None:
+    """What the kernel takes, checked before a launch: NHWC x, HWIO w,
+    (Cout,) b, and the operand rules of `check_launch_args`. Its 32-bit
+    indices are the pixel row (M = B*H*W) and W's elements; offsets into x
+    and y are 64-bit, so those may hold 2^31 elements or more. The
+    launcher rounds M up to whole 128-row tiles in int arithmetic, so M
+    may be at most 2^31 - 128."""
     if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]) or b.shape != (w.shape[3],):
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} "
                          "are not NHWC x, (3, 3, Cin, Cout) w, (Cout,) b")
     n, h, w_dim, cin = x.shape
+    check_launch_args(x, w, b, activation, (n * h * w_dim + 127, 9 * cin * w.shape[3]))
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            activation: Optional[str]) -> torch.Tensor:
+    check_conv_args(x, w, b, activation)
+    n, h, w_dim, cin = x.shape
     cout = w.shape[3]
-    check_launch_args(x, w, b, activation, (x.numel(), n * h * w_dim * cout, 9 * cin * cout))
     wk = w.permute(3, 0, 1, 2).contiguous()  # (Cout, 3, 3, Cin); free for channels_last OIHW
     bias = b.to(torch.float32).contiguous()
     y = torch.empty((n, h, w_dim, cout), dtype=x.dtype, device=x.device)

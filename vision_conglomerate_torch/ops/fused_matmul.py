@@ -53,7 +53,8 @@ def check_launch_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       activation: Optional[str], numels) -> None:
     """What both CUDA kernels need of their operands, checked before a
     launch: a known activation, bf16 x and w, one device, contiguous x,
-    and every tensor of `numels` elements indexable with 32-bit ints."""
+    and every count in `numels` (what the kernel indexes with 32-bit ints)
+    below 2^31."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported activation {activation!r}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:

@@ -41,6 +41,8 @@ def resolve_remat_default(model_config: Dict[str, Any], batch_size: int) -> Dict
 
 class BasePipeline:
     task = "detection"
+    # the eval metric that picks the best model
+    eval_loss_key = "aggregate_loss"
 
     def __init__(self, model_name: str, config_path: Optional[str] = None,
                  lr_schedule_interval: int = 1, num_keypoints: Optional[int] = None):
@@ -122,17 +124,20 @@ class BasePipeline:
     def load_checkpoint(self, path: str) -> Dict[str, Any]:
         manifest = _load_ckpt(path)
         self._restore(manifest)
-        self.last_epoch = manifest["LAST_EPOCH"]
+        # a JAX snapshot pickles it as a 0-d numpy array, which `+= 1`
+        # would then change in place
+        self.last_epoch = int(manifest["LAST_EPOCH"])
         metrics = manifest.get("METRICS", {})
         self._train_metrics = list(metrics.get("TRAIN", []))
         self._eval_metrics = list(metrics.get("EVAL", []))
         return manifest
 
-    def best_eval_loss(self, key: str = "aggregate_loss") -> float:
-        """Lowest eval loss recorded so far, including history restored by
-        load_checkpoint. The train CLI seeds its best-model tracking from
+    def best_eval_loss(self) -> float:
+        """Lowest eval loss (`eval_loss_key`) recorded so far, including
+        history restored by load_checkpoint. The train CLI seeds its best-model tracking from
         this, so a resumed run cannot overwrite a better best_model/ with
         its first eval after the resume."""
+        key = self.eval_loss_key
         vals = [m[key] for m in self._eval_metrics
                 if key in m and m[key] == m[key]]
         return min(vals) if vals else float("inf")

@@ -12,7 +12,7 @@ epoch, so no step waits on the host.
 
 Checkpoints use the JAX package's manifest format; a port snapshot keeps
 its torch optimizer state under TORCH_OPTIMIZER_PARAMS, and a JAX
-snapshot's Adam state carries over (`optim.load_optax_adam_state`).
+snapshot's Adam state carries over (`optim.load_optax_state`).
 """
 import logging
 from typing import Any, Dict, Optional
@@ -29,7 +29,7 @@ from ..weights import flax_to_state_dict, state_dict_to_flax
 from .base import BasePipeline
 from .checkpoint import to_torch
 from .lr_schedule import LRScheduler
-from .optim import fill_missing_grads, load_optax_adam_state, set_learning_rate
+from .optim import fill_missing_grads, load_optax_state, set_learning_rate
 
 logger = logging.getLogger(__name__)
 
@@ -95,7 +95,7 @@ class TrainDetectionPipeline(BasePipeline):
         if "TORCH_OPTIMIZER_PARAMS" in manifest:
             self.optimizer.load_state_dict(to_torch(manifest["TORCH_OPTIMIZER_PARAMS"]))
         elif "OPTIMIZER_PARAMS" in manifest:
-            load_optax_adam_state(self.optimizer, self.model, manifest["OPTIMIZER_PARAMS"])
+            load_optax_state(self.optimizer, self.model, manifest["OPTIMIZER_PARAMS"])
         if self.lr_scheduler and "LR_SCHEDULER_PARAMS" in manifest:
             self.lr_scheduler.load_state_dict(manifest["LR_SCHEDULER_PARAMS"])
 

@@ -76,24 +76,51 @@ def _find_state(tree: Any, class_name: str) -> Iterator[Any]:
             yield from _find_state(node, class_name)
 
 
-def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: nn.Module, opt_state: Any):
-    """Carry a JAX snapshot's Adam state (optax ScaleByAdamState: count, mu,
-    nu) into a torch.optim.Adam over `model`: mu -> exp_avg, nu ->
-    exp_avg_sq, count -> step. The state of any other optimizer raises."""
-    found = list(_find_state(opt_state, "ScaleByAdamState"))
-    if type(optimizer) is not torch.optim.Adam or len(found) != 1:
+def _optax_count(opt_state: Any) -> float:
+    """The update count of an optax inject_hyperparams state (its first
+    field, `count`)."""
+    for name in ("InjectStatefulHyperparamsState", "InjectHyperparamsState"):
+        found = list(_find_state(opt_state, name))
+        if len(found) == 1:
+            return float(found[0][0])
+    raise NotImplementedError("a JAX snapshot's optimizer state without inject_hyperparams' "
+                              "count is not read by the port (ROADMAP §A.8)")
+
+
+def load_optax_state(optimizer: torch.optim.Optimizer, model: nn.Module, opt_state: Any):
+    """Carry a JAX snapshot's optimizer state into the torch optimizer over
+    `model`:
+    - Adam (optax ScaleByAdamState: count, mu, nu): mu -> exp_avg, nu ->
+      exp_avg_sq, count -> step;
+    - Adadelta (optax ScaleByAdaDeltaState: e_g, e_x): e_g -> square_avg,
+      e_x -> acc_delta, inject_hyperparams' count -> step. torch's Adadelta
+      update is optax's: e_g = rho e_g + (1 - rho) g^2, delta = g sqrt(e_x
+      + eps) / sqrt(e_g + eps), e_x = rho e_x + (1 - rho) delta^2, p -= lr
+      delta, with the weight decay added to g first in both.
+    The state of any other optimizer raises."""
+    kind = type(optimizer)
+    if kind is torch.optim.Adam:
+        found = list(_find_state(opt_state, "ScaleByAdamState"))
+        if len(found) == 1:
+            count, mu, nu = found[0]
+            slots = {"exp_avg": mu, "exp_avg_sq": nu}
+    elif kind is torch.optim.Adadelta:
+        found = list(_find_state(opt_state, "ScaleByAdaDeltaState"))
+        if len(found) == 1:
+            count = _optax_count(opt_state)
+            slots = {"square_avg": found[0][0], "acc_delta": found[0][1]}
+    else:
+        found = []
+    if len(found) != 1:
         raise NotImplementedError(
-            f"resuming {type(optimizer).__name__} from a JAX snapshot's optimizer state is not "
-            "in the port (ROADMAP §A.8); only Adam carries over")
-    count, mu, nu = found[0]
-    exp_avg = flax_to_state_dict({"params": mu})
-    exp_avg_sq = flax_to_state_dict({"params": nu})
+            f"resuming {kind.__name__} from a JAX snapshot's optimizer state is not "
+            "in the port (ROADMAP §A.8); only Adam and Adadelta carry over")
+    slots = {k: flax_to_state_dict({"params": v}) for k, v in slots.items()}
     names = {id(p): n for n, p in model.named_parameters()}
     for group in optimizer.param_groups:
         for p in group["params"]:
             n = names[id(p)]
             optimizer.state[p] = {
                 "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": exp_avg[n].to(p.device, p.dtype),
-                "exp_avg_sq": exp_avg_sq[n].to(p.device, p.dtype),
+                **{k: v[n].to(p.device, p.dtype) for k, v in slots.items()},
             }

@@ -131,21 +131,25 @@ def run(args, config, config_path, anchors_path):
 
 
 def fit(args, pipeline, train_dl, eval_dl):
-    """The epoch loop of the train CLIs: train, evaluate every
+    """The epoch loop of the train CLIs: train (at most
+    --steps_per_epoch steps, where the CLI has it), evaluate every
     eval_interval epochs (with --map_eval, where the CLI has it), keep the
-    best model by eval loss, snapshot every checkpoint_interval epochs,
-    write the metrics CSVs and plots. Returns the pipeline."""
+    best model by the pipeline's eval loss, snapshot every
+    checkpoint_interval epochs, write the metrics CSVs and plots. Returns
+    the pipeline."""
     from .utils.profiling import trace
 
     # seeded from restored history, so a resumed run keeps its best model
     best_loss = pipeline.best_eval_loss()
     verbose = not args.no_verbose
     profile_dir = getattr(args, "profile_dir", "")
+    steps = getattr(args, "steps_per_epoch", None)
+    train_kw = {"steps_per_epoch": steps} if steps else {}
     for epoch in range(pipeline.last_epoch, args.epochs):
         logger.info(f"epoch {epoch + 1}/{args.epochs}")
         # profile only the first trained epoch (traces are large)
         with trace(profile_dir if epoch == pipeline.last_epoch else None):
-            pipeline.train(train_dl, verbose=verbose)
+            pipeline.train(train_dl, verbose=verbose, **train_kw)
         if ((epoch + 1) % args.eval_interval == 0) or (epoch + 1 == args.epochs):
             metrics = pipeline.evaluate(eval_dl, verbose=verbose)
             if getattr(args, "map_eval", False):
@@ -156,8 +160,8 @@ def fit(args, pipeline, train_dl, eval_dl):
                 pipeline.annotate_last("eval", {"map50": float(map_res["map"])})
                 if verbose:
                     logger.info(f"mAP@50: {map_res['map']:.4f}")
-            if metrics["aggregate_loss"] < best_loss:
-                best_loss = metrics["aggregate_loss"]
+            if metrics[pipeline.eval_loss_key] < best_loss:
+                best_loss = metrics[pipeline.eval_loss_key]
                 pipeline.save_best_model()
             pipeline.metrics_to_csv()
         if ((epoch + 1) % args.checkpoint_interval == 0) or (epoch + 1 == args.epochs):
