@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection, segmentation and TrackNet paths on
-one NVIDIA GPU and hold its CUDA kernels against their plain PyTorch
-versions.
+"""Drive the PyTorch port's detection, segmentation and TrackNet (base and
+advanced) paths on one NVIDIA GPU and hold its CUDA kernels against their
+plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also writes torch.profiler tables
@@ -59,13 +59,18 @@ Phases (any failure exits non-zero; nothing is caught):
    column), a snapshot and best_model/ (f32 conv kernels) must exist. The
    second epoch gives the train step time (host clock, the epoch's wall
    time over its steps, loader included) and images/s.
-6. card vs CPU: one train step of one seeded net on one batch of 2 train
-   images, on the card in f32 and in bf16 against the CPU in f32, by the
+6. card vs CPU: one train step of one seeded net (anchors from the shipped
+   configs/detection/anchors.yaml, not the temp copy the CLI's
+   auto-anchors may have rewritten, so every machine holds one input; the
+   CPU reference loss is printed) on one batch of 2 train images, on the
+   card in f32 and in bf16 against the CPU in f32, by the
    loss (relative), the gradient of every parameter (cosine; the conv
    biases in front of a train-mode BatchNorm have no gradient in exact
    arithmetic and are skipped) and the BatchNorm running statistics after
    the step (max |card - cpu|), within TRAIN_LIMITS; the card's bf16
-   gradients are held to the CPU's own bf16 step (BF16_COS_RATIO).
+   gradients are held to the CPU's own bf16 step (BF16_COS_RATIO). First
+   the reference is checked: the stem's train-mode BatchNorm on the CPU
+   and on the card within REF_BN_LIMIT of f64.
 7. learning: 20 steps on one fixed batch of 16 on the card; the last loss
    must be below the first. Steps 6-20 give the step time without the
    loader (host clock, synchronized).
@@ -106,7 +111,8 @@ Phases (any failure exits non-zero; nothing is caught):
    Each epoch's mean loss must be finite, and the metrics CSVs (with
    seg_loss, dice_score, seg_dropped_candidates), the snapshots and
    best_model/ must exist.
-14. seg card vs CPU: phase 6 for the seg net with cap_policy "first"
+14. seg card vs CPU: phase 6 for the seg net with cap_policy "first" and
+   the shipped seg anchors, as are phase 15's learned net's
    (SEG_TRAIN_LIMITS, BF16_COS_RATIO).
 15. seg eval: the eval_seg entry point on best_model/ over the valid images,
    and on a seg net taken SEG_LEARN_STEPS steps on one batch of 16 over
@@ -144,14 +150,29 @@ Phases (any failure exits non-zero; nothing is caught):
    over the eval split and on the learned net over its clip's eval split,
    card and CPU: the JAX CLI's keys, |f1 card - cpu| <= TN_EVAL_F1_LIMIT,
    conv3x3 launches in the card's --deploy runs, the learned net's f1 > 0.
-The kernel phase (3) runs last, over the shapes of the three serve paths
-(TrackNet's: every shape its serve run launched, at batch 32, 8 and 6),
-and prints each kernel's sums per batch of each path (TrackNet's per
-batch of 32); then dec_13 at batch 64 (3.7e9 output elements, past 2^31)
-against the plain conv of its last image.
+20. tracknet adv serve: phase 16 for the advanced architecture
+   (configs/tracknet/config_advanced.yaml: CSPNet + RepBiPAN encoder,
+   DeconvRepBiPAN + DeconvCSPNet decoder, width 0.5, depth 0.3, canonical
+   RepVGG, uniform init), in the fused deploy form: both counters must
+   rise by the net's launches a batch (printed) times the batches; then
+   the clip once at batch 32 with use_reparam=False (the train form,
+   which launches no kernel). Card vs CPU logits within
+   TN_ADV_LOGIT_LIMITS.
+21. tracknet adv train: phases 17 and 18 for the advanced config (Adam
+   1e-3, the warm-restart schedule with eta_min 1e-5): train_tracknet.run,
+   one step card vs CPU (TN_ADV_TRAIN_LIMITS), the learning check and the
+   learned net.
+22. tracknet adv eval: phase 19 on the advanced checkpoints; both kernels
+   must launch in the --deploy runs.
+The kernel phase (3) runs last, over the shapes of the four serve paths
+(TrackNet's, base and advanced: every shape its serve run launched, at
+batch 32, 8 and 6), and prints each kernel's sums per batch of each path
+(TrackNet's per batch of 32); then dec_13 at batch 64 (3.7e9 output
+elements, past 2^31) against the plain conv of its last image.
 With --profile, 3 fixed-batch train steps are profiled too: device-busy
 share and the top device ops (chiprun_out/train_profile.txt, and
-chiprun_out/tn_train_profile.txt for TrackNet).
+chiprun_out/tn_train_profile.txt and tn_adv_train_profile.txt for
+TrackNet).
 
 Output: per-shape lines, then a `{"kernels": [...]}` JSON line, the card's
 name and power limit, and as the last line
@@ -209,6 +230,11 @@ TRAIN_LIMITS = {
     "bf16": {"loss_rel": 4.5e-3, "bn_stats": 0.27},
 }
 BF16_COS_RATIO = 3.0
+# the relative L2 error of the stem's train-mode BatchNorm against f64 on
+# the CPU and on the card (reference_batchnorm): f32 rounding is about 2e-7
+# (torch's CPU kernel on the phase-6 stem's channels_last map read 2.1e-5,
+# the card 9.3e-8; NVIDIA H100 80GB HBM3, 700.00 W)
+REF_BN_LIMIT = 1e-6
 # |mAP@50 card bf16 - cpu f32| of eval_det, about 3x the larger of the two
 # readings on the learned net, 0.00769 and 0.0312 (NVIDIA H100 80GB HBM3,
 # 700.00 W). The learned images hold about one box of each class, so a
@@ -272,6 +298,14 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def phase_clock(label: str):
+    """Prints the host seconds the phases under `label` took."""
+    t0 = time.time()
+    yield
+    print(f"phase time: {label} {time.time() - t0:.1f} s (host clock)")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -1035,6 +1069,37 @@ def compare_steps(a, b, names):
                 bn_stats=max((sa[n] - sb[n]).abs().max().item() for n in sb))
 
 
+def reference_batchnorm(config, anchors, batch):
+    """The train-mode BatchNorm of the phase-6 net's stem (its conv's
+    output on the batch, a channels_last map as the train step hands it
+    over) on the CPU and on the card against the same normalisation in
+    f64. The card-vs-CPU step gates hold the card only as far as the CPU
+    reference is at f32 rounding: its error must stay within
+    REF_BN_LIMIT."""
+    from vision_conglomerate_torch.nn.blocks import conv2d
+    from vision_conglomerate_torch.ops.preprocess import normalize_images
+
+    stem = seeded_net(config, anchors).backbone.conv0.train()
+    with torch.no_grad():
+        y = conv2d(normalize_images(torch.from_numpy(batch[0])).permute(0, 3, 1, 2), stem.conv)
+        yd = y.double()
+        mean = yd.mean((0, 2, 3), keepdim=True)
+        var = yd.var((0, 2, 3), unbiased=False, keepdim=True)
+        w, b = (t.double()[:, None, None] for t in (stem.norm.weight, stem.norm.bias))
+        want = (yd - mean) / torch.sqrt(var + stem.norm.eps) * w + b
+        rel = lambda got: ((got.double().cpu() - want).norm() / want.norm()).item()
+        raw = rel(F.batch_norm(y, None, None, stem.norm.weight, stem.norm.bias, True, 0.0,
+                               stem.norm.eps))
+        err = {dev: rel(stem.norm.to(dev)(y.to(dev))) for dev in ("cpu", "cuda")}
+    layout = "channels_last" if y.is_contiguous(memory_format=torch.channels_last) else "NCHW"
+    print(f"train: the stem's train-mode BatchNorm on {tuple(y.shape)} ({layout}) against f64, "
+          f"relative L2: cpu {err['cpu']:.3e}, card {err['cuda']:.3e} (limit {REF_BN_LIMIT:g}); "
+          f"torch's CPU kernel on the {layout} map itself {raw:.3e}")
+    for dev, e in err.items():
+        check(e <= REF_BN_LIMIT, f"the stem's BatchNorm on {dev} is {e:.3e} from f64")
+    return err
+
+
 def card_vs_cpu_step(config, anchors, task="detection", limits=None):
     """One seeded net, one batch of 2: the step on the card in f32 and in
     bf16 against the CPU f32 step (`limits`, TRAIN_LIMITS by default). The
@@ -1066,7 +1131,8 @@ def card_vs_cpu_step(config, anchors, task="detection", limits=None):
               f"{r['bn_stats']:.3e}".replace("bf16_vs_cpu_bf16 vs cpu f32", "card bf16 vs cpu bf16")
               + (f"; limits {limits[tag]}" if tag in limits else ""))
     print(f"{tag_}: {len(names)} parameters compared; {len(skip)} conv biases before BatchNorm "
-          f"and the anchors left out")
+          f"and the anchors left out; the cpu f32 reference loss {ref[0]!r} (the seeded net on "
+          f"the shipped anchors)")
     for key in ("one_minus_global_cos", "one_minus_median_cos"):
         ratio = out["bf16"][key] / out["cpu_bf16"][key]
         out["bf16"][key + "_ratio"] = ratio
@@ -1292,9 +1358,17 @@ def remat_phase(config, anchors):
                 step_ms={str(k): v["step_ms"] for k, v in res.items()})
 
 
-def train_phase(root, out_dir, profile):
+def shipped_anchors(task):
+    """The anchors of configs/<task>/anchors.yaml. The phases after a train
+    CLI take these, not the temp copy that its auto-anchors may have
+    rewritten (a k-means and a genetic search on this machine), so every
+    machine holds the same inputs."""
     from vision_conglomerate_torch.utils import load_yaml
 
+    return load_yaml(os.path.join(REPO, "configs", task, "anchors.yaml"))["anchors"]
+
+
+def train_phase(root, out_dir, profile):
     config, config_path, anchors_path = write_train_data(root)
     pipe, seconds, peak = run_train_cli(root, config, config_path, anchors_path)
     check_train_artifacts(root, pipe)
@@ -1306,7 +1380,8 @@ def train_phase(root, out_dir, profile):
           f"{last['images_per_sec']:.1f} images/s (host clock, synchronized, loader included); "
           f"peak memory allocated {peak / 2 ** 30:.3f} GiB; losses "
           f"{[round(m['aggregate_loss'], 4) for m in pipe._train_metrics]}")
-    anchors = load_yaml(anchors_path)["anchors"]
+    anchors = shipped_anchors("detection")
+    reference_batchnorm(config, anchors, train_batch(config, 2))
     parity = card_vs_cpu_step(config, anchors)
     losses, fixed_ms, (lpipe, batch) = learning_check(config, anchors)
     prof = (profile_train(lpipe, batch, fixed_ms, os.path.join(out_dir, "train_profile.txt"))
@@ -1554,8 +1629,6 @@ def write_seg_train_data(root):
 def seg_train_phase(root):
     import copy
 
-    from vision_conglomerate_torch.utils import load_yaml
-
     config, config_path, anchors_path = write_seg_train_data(root)
     pipe, seconds, peak = run_train_cli(root, config, config_path, anchors_path, "segmentation")
     check_train_artifacts(root, pipe, "segmentation")
@@ -1568,7 +1641,7 @@ def seg_train_phase(root):
           f"{[round(m['aggregate_loss'], 4) for m in pipe._train_metrics]}, seg_loss "
           f"{[round(m['seg_loss'], 4) for m in pipe._train_metrics]}, dice_score "
           f"{[round(m['dice_score'], 4) for m in pipe._train_metrics]}")
-    anchors = load_yaml(anchors_path)["anchors"]
+    anchors = shipped_anchors("segmentation")
     first = copy.deepcopy(config)
     first["train_config"]["loss_config"]["cap_policy"] = "first"
     parity = card_vs_cpu_step(first, anchors, "segmentation", SEG_TRAIN_LIMITS)
@@ -1596,7 +1669,9 @@ TN_LOGIT_LIMITS = (0.04, 2.5e-3)
 # BatchNorm 8.35e-7; bf16 loss rel 3.56e-5, BatchNorm 1.76e-3 (bf16
 # gradients held by BF16_COS_RATIO, read 1.11 and 1.02). The f32 loss
 # differs by whole ulps (one ulp of 5.5 is 8.7e-8 of it): four runs read 1,
-# 1, 1 and 2 ulps, so its limit is 3x the 2-ulp reading
+# 1, 1 and 2 ulps, so its limit is 3x the 2-ulp reading. On the first
+# window in path order (`tn_batch`), with the CPU's BatchNorm at f32
+# rounding: 1 ulp, 1.95e-5, 1.19e-7
 TN_TRAIN_LIMITS = {
     "f32": {"loss_rel": 5.2e-7, "one_minus_min_cos": 1.6e-4, "bn_stats": 2.5e-6},
     "bf16": {"loss_rel": 1.1e-4, "bn_stats": 5.3e-3},
@@ -1619,8 +1694,28 @@ TN_LEARN_FRAMES = TRAIN_BATCH + 2  # one clip whose 16 windows are the learning 
 # the shipped Adadelta at variance 20 hit the ball in all 13 windows
 # where it is visible at step 200 (at 100: step 550); Adam at lr 1e-3 or
 # 1e-2 left 1-9 of the 256 class channels alive behind dec_13's ReLU and hit
-# none in 300-400 steps. f1 does not depend on the variance
+# none in 300-400 steps; the advanced net, whose logits end in SiLU, hit
+# all 13 with the config's Adam at 1e-3 at step 220 (first reading). f1
+# does not depend on the variance
 TN_LEARN_DIAMETER, TN_LEARN_MAX_STEPS, TN_LEARN_EVERY = 20, 400, 25
+# The advanced TrackNet phases (configs/tracknet/config_advanced.yaml:
+# CSPNet + RepBiPAN, DeconvRepBiPAN + DeconvCSPNet at width 0.5, depth 0.3,
+# canonical RepVGG, Adam 1e-3; the same clips, batches and learning clip).
+# Card bf16 vs CPU f32 logits of one serve batch, (max, mean) |card - cpu|:
+# about 3x the first reading on an H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md): 3.21e-4 and 4.97e-5 (max |ref| 0.0614).
+TN_ADV_LOGIT_LIMITS = (1e-3, 1.5e-4)
+# one train step on 1 window (the first in path order, `tn_batch`) against
+# the CPU f32 step, about 3x the readings on that window (two, equal, on
+# an H100, NVIDIA H100 80GB HBM3, 700.00 W): f32 loss rel 8.60e-8 (1 ulp of
+# 5.54; the limit is the base net's, 3x 2 ulps), 1 - lowest cosine 2.56e-7
+# (a decoder CSPSPPF BatchNorm bias), BatchNorm 1.93e-5; bf16 loss rel
+# 1.31e-4 (another window 3.5e-5), BatchNorm 0.0715 (bf16 gradients held
+# by BF16_COS_RATIO, read 1.34 and 1.23)
+TN_ADV_TRAIN_LIMITS = {
+    "f32": {"loss_rel": 5.2e-7, "one_minus_min_cos": 8e-7, "bn_stats": 6e-5},
+    "bf16": {"loss_rel": 8e-4, "bn_stats": 0.2},
+}
 
 
 def tn_background():
@@ -1672,23 +1767,34 @@ def write_tn_clips(root):
     return paths, folder
 
 
-def tn_config():
+TN_BASE, TN_ADV = "config.yaml", "config_advanced.yaml"
+
+
+def tn_config(name=TN_BASE):
     from vision_conglomerate_torch.utils import load_yaml
 
-    return load_yaml(os.path.join(REPO, "configs", "tracknet", "config.yaml"))
+    return load_yaml(os.path.join(REPO, "configs", "tracknet", name))
+
+
+def tn_label(config):
+    """The prefix of a TrackNet phase's lines: "tracknet" for the base
+    architecture, "tracknet adv" for the advanced one."""
+    return "tracknet adv" if config["model_config"]["architecture"] == "advanced" else "tracknet"
 
 
 def tn_seeded_net(config, dtype=torch.float32, device="cpu", state=None):
-    """A train-form TrackNet with the config's uniform init and non-trivial
-    BatchNorm state from SEED (or the given state_dict)."""
+    """A train-form TrackNet with the config's init (uniform in both
+    shipped configs) and non-trivial BatchNorm state from SEED (or the
+    given state_dict)."""
     from vision_conglomerate_torch.models import TrackNet
     from vision_conglomerate_torch.nn.blocks import randomize_batchnorm_
-    from vision_conglomerate_torch.nn.initializers import uniform_conv_init
+    from vision_conglomerate_torch.nn.initializers import INIT_SCHEMES
 
     net = TrackNet(config["model_config"], dtype=dtype, device="cpu")
     if state is None:
         g = torch.Generator().manual_seed(SEED)
-        randomize_batchnorm_(uniform_conv_init(net, g), g)
+        init = INIT_SCHEMES[config["model_config"].get("weight_init", "uniform")]
+        randomize_batchnorm_(init(net, g), g)
     else:
         net.load_state_dict(state)
     return net.to(device)
@@ -1703,7 +1809,7 @@ def save_tn_checkpoint(path, net):
     return path
 
 
-def tn_serve(path, ckpt, config, storage, batch_size, device="cuda"):
+def tn_serve(path, ckpt, config, storage, batch_size, device="cuda", use_reparam=True):
     """One run_tracknet_inference call; (host-clock seconds, output dir,
     video.mp4 frames, output.csv rows as a DataFrame)."""
     import pandas as pd
@@ -1711,23 +1817,43 @@ def tn_serve(path, ckpt, config, storage, batch_size, device="cuda"):
 
     t0 = time.time()
     out = run_tracknet_inference(path, ckpt, config, batch_size=batch_size, with_summary=True,
-                                 storage_path=storage, device=device)
+                                 storage_path=storage, device=device, use_reparam=use_reparam)
     if device == "cuda":
         torch.cuda.synchronize()
     return time.time() - t0, out, video_frames(out), pd.read_csv(os.path.join(out, "output.csv"))
 
 
-def tn_serve_phase(root):
-    """The seeded TrackNet served on the card: the clip at each of
-    TN_SERVE_BATCHES and the frame folder (counters zeroed before, read
-    after: 18 conv3x3 launches a batch), video.mp4 frames and output.csv;
-    warm frames/s; then card vs CPU at batch TN_SERVE_BATCHES[-1]. Returns
-    the results, the kernel shapes of one batch of TN_SERVE_BATCHES[-1]
-    and {shape: launches} of the run's other batches."""
-    config = tn_config()
+def tn_routed(config):
+    """({route: launches a batch}, {activations}) of the kernel-routed convs
+    of the config's TrackNet in the deploy form that load_tracknet_model
+    builds (built on the meta device, no weights)."""
+    from vision_conglomerate_torch.infer.tracknet_runner import adv_repvgg_canonical
+    from vision_conglomerate_torch.models import TrackNet
+
+    mc = config["model_config"]
+    fuse = mc["architecture"] == "advanced" and adv_repvgg_canonical(mc)
+    net = TrackNet(mc, folded=True, deploy=fuse, device="meta")
+    routed = [(kernel_conv(m)[0], m.activation) for m in net.modules() if kernel_conv(m)]
+    return dict(Counter(r for r, _ in routed)), {a for _, a in routed}
+
+
+def tn_serve_phase(root, name=TN_BASE):
+    """The seeded TrackNet of configs/tracknet/<name> served on the card:
+    the clip at each of TN_SERVE_BATCHES and the frame folder (counters
+    zeroed before, read after: each kernel's launches a batch times the
+    batches; base: 18 conv3x3), video.mp4 frames and output.csv; for the
+    advanced net the clip once more at batch 32 in the train form
+    (`use_reparam=False`, no kernel launch); warm frames/s; then card vs
+    CPU at batch TN_SERVE_BATCHES[-1]. Returns the results, the kernel
+    shapes of one batch of TN_SERVE_BATCHES[-1] and {shape: launches} of
+    the run's other batches."""
+    config = tn_config(name)
+    label = tn_label(config)
+    adv = name == TN_ADV
     net = tn_seeded_net(config)
     ckpt = save_tn_checkpoint(os.path.join(root, "tn", "TrackNet.ckpt.tar"), net)
     clips, folder = write_tn_clips(root)
+    per_batch, acts = tn_routed(config)
     windows = TN_FRAMES - 2
     zero_counters()
     runs = {}
@@ -1736,55 +1862,71 @@ def tn_serve_phase(root):
             runs[f"video_b{bs}"] = tn_serve(clips[TN_FRAMES], ckpt, config,
                                             os.path.join(root, f"tn_video_b{bs}"), bs)
         runs["folder_b8"] = tn_serve(folder, ckpt, config, os.path.join(root, "tn_folder"), 8)
-    launches = {"conv3x3": read_counters()["conv3x3"]}
+    counts = read_counters()
+    launches = {route: counts[route] for route in per_batch}
     n_batches = 2 * -(-windows // 8) + -(-windows // 32)
-    print(f"tracknet serve: {TN_FRAMES} frames 1280x720 through run_tracknet_inference, the clip "
+    print(f"{label} serve: {TN_FRAMES} frames 1280x720 through run_tracknet_inference, the clip "
           f"at batch {TN_SERVE_BATCHES} and the frame folder at 8: "
           + ", ".join(f"{k} {v[0]:.2f} s" for k, v in runs.items())
-          + f" (first calls); launches {launches}")
-    check(launches["conv3x3"] == 18 * n_batches == len(run_seen),
-          f"tracknet: {launches['conv3x3']} conv3x3 launches ({len(run_seen)} recorded) in "
-          f"{n_batches} batches, want 18 each")
-    check(all(s[0] == "conv3x3" and s[3] == "relu" for s in run_seen),
-          f"tracknet deploy form routes {sorted(set(run_seen))}")
+          + f" (first calls); launches {launches} in {n_batches} batches, {per_batch} a batch")
+    for route in KERNELS:
+        n = per_batch.get(route, 0)
+        check(counts[route] == n * n_batches == sum(1 for r in run_seen if r[0] == route),
+              f"{label}: {counts[route]} {route} launches "
+              f"({sum(1 for r in run_seen if r[0] == route)} recorded) in {n_batches} batches, "
+              f"want {n} each")
+    check({s[3] for s in run_seen} == acts,
+          f"{label} deploy form routes {sorted(set(run_seen))}")
     full = TN_SERVE_BATCHES[-1]
-    one_batch = [s for s in run_seen if s[1][0] == full][:18]
+    one_batch = [s for s in run_seen if s[1][0] == full][:sum(per_batch.values())]
     others = Counter(s for s in run_seen if s[1][0] != full)
-    print(f"tracknet serve: the run's conv3x3 launches by batch size "
+    print(f"{label} serve: the run's kernel launches by batch size "
           f"{dict(sorted(Counter(s[1][0] for s in run_seen).items()))}")
+    if adv:
+        zero_counters()
+        runs["video_b32_train_form"] = tn_serve(clips[TN_FRAMES], ckpt, config,
+                                                os.path.join(root, "tn_train_form"), 32,
+                                                use_reparam=False)
+        check(read_counters() == {route: 0 for route in KERNELS},
+              f"{label}: the train form launched {read_counters()}")
     stats = {}
     for key, (_, _, frames, df) in runs.items():
-        check(frames == TN_FRAMES, f"tracknet {key}: video.mp4 has {frames} frames, want "
+        check(frames == TN_FRAMES, f"{label} {key}: video.mp4 has {frames} frames, want "
                                    f"{TN_FRAMES}")
         check(list(df.columns) == ["frame", "x", "y", "r"] and len(df) <= windows
               and bool((df["frame"] > 2).all()) and bool(np.isfinite(df.to_numpy()).all()),
-              f"tracknet {key}: output.csv {list(df.columns)}, {len(df)} rows")
+              f"{label} {key}: output.csv {list(df.columns)}, {len(df)} rows")
         stats[key] = dict(rows=len(df))
-    print("tracknet serve: output.csv rows " + ", ".join(f"{k} {v['rows']}"
-                                                        for k, v in stats.items())
+    print(f"{label} serve: output.csv rows " + ", ".join(f"{k} {v['rows']}"
+                                                         for k, v in stats.items())
           + f" of {windows} windows (a random net; video.mp4 {TN_FRAMES} frames each)")
     warm = []
     for i in range(2):
         t_short = tn_serve(clips[TN_SHORT], ckpt, config, os.path.join(root, f"tn_ws{i}"), 32)[0]
         t_long = tn_serve(clips[TN_FRAMES], ckpt, config, os.path.join(root, f"tn_wl{i}"), 32)[0]
         warm.append((TN_FRAMES - TN_SHORT) / (t_long - t_short))
-    print(f"tracknet serve: warm {warm[0]:.3f} and {warm[1]:.3f} frames/s at batch 32, "
+    print(f"{label} serve: warm {warm[0]:.3f} and {warm[1]:.3f} frames/s at batch 32, "
           f"({TN_FRAMES} - {TN_SHORT}) frames over the difference of two calls (host clock: "
           f"decode, 9-channel resize, forward, heatmap resize, decode, drawing, mp4 encode)")
-    cmp, fwd_ms = tn_compare_models(config, ckpt, folder, full)
-    extra = {shape: f"tracknet_serve run x{n}, batch {shape[1][0]}" for shape, n in others.items()}
+    cmp, fwd_ms = tn_compare_models(config, ckpt, folder, full,
+                                    TN_ADV_LOGIT_LIMITS if adv else TN_LOGIT_LIMITS)
+    path = "tracknet_adv_serve" if adv else "tracknet_serve"
+    extra = {shape: f"{path} run x{n}, batch {shape[1][0]}" for shape, n in others.items()}
     return dict(first_call_seconds={k: v[0] for k, v in runs.items()}, launches=launches,
-                outputs=stats, warm_frames_per_s=warm, model_vs_cpu=cmp,
-                forward_batch=full, forward_ms_per_batch=fwd_ms), one_batch, extra
+                launches_per_batch=per_batch, outputs=stats, warm_frames_per_s=warm,
+                model_vs_cpu=cmp, forward_batch=full, forward_ms_per_batch=fwd_ms), \
+        one_batch, extra
 
 
-def tn_compare_models(config, ckpt, folder, batch):
-    """Card (bf16, conv3x3 kernel) vs CPU (f32, plain version) logits of
-    the first TN_CPU_IMAGES windows of a batch of `batch` (gated), the
-    argmax agreement (reported) and the forward's time."""
+def tn_compare_models(config, ckpt, folder, batch, limits):
+    """Card (bf16, the kernels) vs CPU (f32, plain versions) logits of the
+    first TN_CPU_IMAGES windows of a batch of `batch` (gated by `limits`,
+    (max, mean) |d|), the argmax agreement (reported) and the forward's
+    time."""
     from vision_conglomerate_torch.data.inference import TrackNetInferenceImgDataset
     from vision_conglomerate_torch.infer.tracknet_runner import load_tracknet_model
 
+    label = tn_label(config)
     img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
     ds = TrackNetInferenceImgDataset(folder, img_wh=img_wh)
     x = np.stack([ds[i][0] for i in range(batch)])
@@ -1805,14 +1947,14 @@ def tn_compare_models(config, ckpt, folder, batch):
     agree = (g.argmax(1) == want.argmax(1)).float().mean().item()
     stats = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
                  max_ref=want.abs().max().item(), argmax_agreement=agree, cpu_seconds=cpu_s)
-    print(f"tracknet serve: card bf16 (a batch of {batch}) vs cpu f32 logits of the first "
+    print(f"{label} serve: card bf16 (a batch of {batch}) vs cpu f32 logits of the first "
           f"{TN_CPU_IMAGES} windows: max |d| "
-          f"{stats['max_abs_err']:.6g} (limit {TN_LOGIT_LIMITS[0]:g}), mean |d| "
-          f"{stats['mean_abs_err']:.6g} (limit {TN_LOGIT_LIMITS[1]:g}), max |ref| "
+          f"{stats['max_abs_err']:.6g} (limit {limits[0]:g}), mean |d| "
+          f"{stats['mean_abs_err']:.6g} (limit {limits[1]:g}), max |ref| "
           f"{stats['max_ref']:.6g}; argmax agreement {agree:.4f} of the pixels (reported, not "
           f"gated); cpu forward {cpu_s:.2f} s")
-    check(diff.max().item() <= TN_LOGIT_LIMITS[0] and diff.mean().item() <= TN_LOGIT_LIMITS[1],
-          "card TrackNet logits differ from the CPU reference")
+    check(diff.max().item() <= limits[0] and diff.mean().item() <= limits[1],
+          f"card {label} logits differ from the CPU reference")
 
     def forward():
         with torch.no_grad():
@@ -1825,7 +1967,7 @@ def tn_compare_models(config, ckpt, folder, batch):
         forward()
     torch.cuda.synchronize()
     fwd_ms = (time.time() - t0) / 10 * 1e3
-    print(f"tracknet serve: forward + argmax + resize to 1280x720 at batch {batch}: "
+    print(f"{label} serve: forward + argmax + resize to 1280x720 at batch {batch}: "
           f"{fwd_ms:.3f} ms/batch (host clock, synchronized)")
     return stats, fwd_ms
 
@@ -1863,11 +2005,11 @@ def big_conv_case(g):
                 bound_by=by, max_abs_err=err.max().item(), output_elements=b * h * w * cout)
 
 
-def write_tn_train_data(root):
+def write_tn_train_data(root, name=TN_BASE):
     """TN_CLIPS clips of TN_CLIP_FRAMES 1280x720 JPEG frames under
     data/game1/Clip*/ with Label.csv (the ball hidden, visibility 0, in
     every 6th frame), a clip of TN_LEARN_FRAMES frames under
-    learned/game1/Clip1/, and a temp copy of the shipped config with
+    learned/game1/Clip1/, and a temp copy of configs/tracknet/<name> with
     data_path pointing here."""
     import cv2
     import pandas as pd
@@ -1891,7 +2033,7 @@ def write_tn_train_data(root):
     for c in range(TN_CLIPS):
         clip(os.path.join(root, "data", "game1", f"Clip{c + 1}"), TN_CLIP_FRAMES, c)
     clip(os.path.join(root, "learned", "game1", "Clip1"), TN_LEARN_FRAMES, 1)
-    with open(os.path.join(REPO, "configs", "tracknet", "config.yaml")) as f:
+    with open(os.path.join(REPO, "configs", "tracknet", name)) as f:
         config = yaml.safe_load(f)
     config["train_config"]["data_path"] = os.path.join(root, "data")
     config_path = os.path.join(root, "config.yaml")
@@ -1910,12 +2052,17 @@ def tn_pipe(net, config):
     return pipe
 
 
-def tn_batch(config, data_path, n):
+def tn_batch(config, data_path, n, path_order=False):
     """The first n windows (uint8 frames, heatmaps, others) of the seed-42
-    train split of data_path, collated."""
+    train split of data_path, or with `path_order` of data_path in the
+    order of their frames' paths, collated. (The split's shuffle runs over
+    the clips in the order glob lists them, which the file system sets: of
+    more than one clip it takes other windows on another machine.)"""
     from vision_conglomerate_torch.train_tracknet import make_datasets
 
     ds, _ = make_datasets(config, data_path, split_percentage=1.0)
+    if path_order:
+        ds.labels_df = ds.labels_df.sort_values("frame1", ignore_index=True)
     return ds.collate_fn([ds[i] for i in range(n)])
 
 
@@ -1928,12 +2075,13 @@ def tn_step_result(net, config, batch):
     return loss, grads, stats
 
 
-def tn_card_vs_cpu_step(config):
+def tn_card_vs_cpu_step(config, limits):
     """One seeded TrackNet, one window: the train step on the card in f32
-    and bf16 against the CPU f32 step, as phase 6 does."""
+    and bf16 against the CPU f32 step, as phase 6 does, within `limits`."""
+    label = tn_label(config)
     cpu = tn_seeded_net(config)
     state = {k: v.clone() for k, v in cpu.state_dict().items()}
-    batch = tn_batch(config, config["train_config"]["data_path"], 1)
+    batch = tn_batch(config, config["train_config"]["data_path"], 1, path_order=True)
     skip = no_grad_biases(cpu)
     t0 = time.time()
     ref = tn_step_result(cpu, config, batch)
@@ -1945,28 +2093,27 @@ def tn_card_vs_cpu_step(config):
                                      ("cpu_bf16", torch.bfloat16, "cpu"))}
     out = {tag: compare_steps(r, ref, names) for tag, r in steps.items()}
     for tag, r in out.items():
-        print(f"tracknet train: one step on 1 window at 640x352, {tag} vs cpu f32: loss "
+        print(f"{label} train: one step on 1 window at 640x352, {tag} vs cpu f32: loss "
               f"{r['loss']:.6f} vs {r['loss_ref']:.6f}, rel {r['loss_rel']:.3e}; 1 - gradient "
               f"cosine: lowest {r['one_minus_min_cos']:.3e} ({r['worst_grad']}), median "
               f"{r['one_minus_median_cos']:.3e}, all as one vector "
               f"{r['one_minus_global_cos']:.3e}; BatchNorm running stats max |d| "
-              f"{r['bn_stats']:.3e}" + (f"; limits {TN_TRAIN_LIMITS[tag]}"
-                                        if tag in TN_TRAIN_LIMITS else ""))
-    print(f"tracknet train: {len(names)} parameters compared, {len(skip)} conv biases before "
+              f"{r['bn_stats']:.3e}" + (f"; limits {limits[tag]}" if tag in limits else ""))
+    print(f"{label} train: {len(names)} parameters compared, {len(skip)} conv biases before "
           f"BatchNorm left out; the cpu f32 step took {cpu_s:.2f} s")
     for key in ("one_minus_global_cos", "one_minus_median_cos"):
         ratio = out["bf16"][key] / out["cpu_bf16"][key]
         out["bf16"][key + "_ratio"] = ratio
-        print(f"tracknet train: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} "
+        print(f"{label} train: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} "
               f"(limit {BF16_COS_RATIO:g})")
         check(bool(np.isfinite(ratio)) and ratio <= BF16_COS_RATIO,
-              f"tracknet: card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's "
+              f"{label}: card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's "
               f"bf16 ({key})")
-    for tag, lims in TN_TRAIN_LIMITS.items():
+    for tag, lims in limits.items():
         for key, lim in lims.items():
             v = out[tag][key]
             check(bool(np.isfinite(v)) and v <= lim,
-                  f"card {tag} tracknet step differs from the CPU: {key} {v:.3e} > {lim:g}")
+                  f"card {tag} {label} step differs from the CPU: {key} {v:.3e} > {lim:g}")
     return out
 
 
@@ -1985,12 +2132,13 @@ def tn_hits(pipe, batch):
 def tn_learning(root, config, out_dir, profile):
     """The seeded net on the learning clip's 16 windows (heatmaps of
     variance TN_LEARN_DIAMETER) as one fixed batch on the card, with the
-    config's Adadelta: the loss must fall in LEARN_STEPS steps (steps 6 on
+    config's optimizer: the loss must fall in LEARN_STEPS steps (steps 6 on
     give the step time, and the peak memory is read over them); then on
     until its train form hits the ball in a window (at most
     TN_LEARN_MAX_STEPS steps). Returns the stats and the learned net."""
     import copy
 
+    label = tn_label(config)
     wide = copy.deepcopy(config)
     wide["train_config"]["img_config"]["avg_diameter"] = TN_LEARN_DIAMETER
     pipe = tn_pipe(tn_seeded_net(config, torch.bfloat16, "cuda"), config)
@@ -2008,13 +2156,14 @@ def tn_learning(root, config, out_dir, profile):
     step_ms = (time.time() - t0) / (LEARN_STEPS - 5) * 1e3
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
-    print(f"tracknet train: {LEARN_STEPS} steps on one batch of {TRAIN_BATCH} windows: loss "
+    print(f"{label} train: {LEARN_STEPS} steps on one batch of {TRAIN_BATCH} windows: loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; fixed-batch step {step_ms:.3f} ms = "
           f"{TRAIN_BATCH / step_ms * 1e3:.1f} windows/s (host clock, synchronized, steps 6-"
           f"{LEARN_STEPS}, no loader); peak memory allocated {peak / 2 ** 30:.3f} GiB")
-    check(all(np.isfinite(losses)), f"tracknet: non-finite loss while learning: {losses}")
-    check(losses[-1] < losses[0], f"tracknet: the loss did not fall: {losses}")
-    prof = (profile_train(pipe, batch[:2], step_ms, os.path.join(out_dir, "tn_train_profile.txt"))
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss while learning: {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    prof = (profile_train(pipe, batch[:2], step_ms, os.path.join(
+        out_dir, f"{label.replace('tracknet', 'tn').replace(' ', '_')}_train_profile.txt"))
             if profile else None)
     steps, hits = LEARN_STEPS, 0
     t0 = time.time()
@@ -2025,20 +2174,20 @@ def tn_learning(root, config, out_dir, profile):
         hits = tn_hits(pipe, batch)
         if hits:
             break
-    print(f"tracknet train: after {steps} steps (the last {steps - LEARN_STEPS} in "
+    print(f"{label} train: after {steps} steps (the last {steps - LEARN_STEPS} in "
           f"{time.time() - t0:.1f} s) the train form hits the ball in {hits} of {TRAIN_BATCH} "
           f"windows")
-    check(hits > 0, f"tracknet: no window hit after {steps} steps on one batch")
+    check(hits > 0, f"{label}: no window hit after {steps} steps on one batch")
     return dict(losses=losses, fixed_batch_step_ms=step_ms, peak_bytes=peak, profile=prof,
                 learn_steps=steps, hits=hits), pipe.model
 
 
-def tn_eval_phase(root, config_path, learned_ckpt):
+def tn_eval_phase(root, config_path, learned_ckpt, label="tracknet", routes=("conv3x3",)):
     """eval_tracknet, train form and --deploy, on best_model/ over the
     data's eval split and on the learned net over the learning clip's,
     each on the card and the CPU: the JAX CLI's keys, |f1 card - cpu| <=
-    TN_EVAL_F1_LIMIT, conv3x3 launches in the card's deploy runs, and the
-    learned net's f1 above 0."""
+    TN_EVAL_F1_LIMIT, launches of each kernel of `routes` in the card's
+    deploy runs, and the learned net's f1 above 0."""
     import contextlib
     import io
 
@@ -2061,39 +2210,44 @@ def tn_eval_phase(root, config_path, learned_ckpt):
                     out[dev] = eval_tracknet.run(eval_tracknet.build_parser().parse_args(argv))
                 seconds[dev] = time.time() - t0
                 if dev == "cuda":
-                    launches = read_counters()["conv3x3"]
+                    launches = {r: read_counters()[r] for r in routes}
                 line = json.loads(printed.getvalue().strip().splitlines()[-1])
                 check(line == out[dev] and list(line) == TN_EVAL_KEYS,
                       f"eval_tracknet ({tag}, {dev}) printed {list(line)}")
             name = f"{tag} {out['cuda']['form']}"
             d = abs(out["cuda"]["f1"] - out["cpu"]["f1"])
-            print(f"tracknet eval: eval_tracknet on {name} over {out['cuda']['num_windows']} "
+            print(f"{label} eval: eval_tracknet on {name} over {out['cuda']['num_windows']} "
                   f"windows: f1 card bf16 {out['cuda']['f1']} (tp {out['cuda']['tp']}, fp "
                   f"{out['cuda']['fp']}, tn {out['cuda']['tn']}, fn {out['cuda']['fn']}), cpu f32 "
                   f"{out['cpu']['f1']} (tp {out['cpu']['tp']}), |d| {d:.3g} (limit "
                   f"{TN_EVAL_F1_LIMIT:g}); eval loss {out['cuda']['eval_loss']} vs "
                   f"{out['cpu']['eval_loss']}; {seconds['cuda']:.2f} s card, {seconds['cpu']:.2f} "
-                  f"s cpu; conv3x3 launches {launches}")
+                  f"s cpu; launches {launches}")
             check(d <= TN_EVAL_F1_LIMIT, f"eval_tracknet ({name}) f1 card vs cpu differs by {d}")
             if form:
-                check(launches > 0, f"the conv3x3 kernel never launched in eval_tracknet ({name})")
+                for route, n in launches.items():
+                    check(n > 0, f"the {route} kernel never launched in {label} eval_tracknet "
+                                 f"({name})")
             if tag == "learned":
                 check(out["cuda"]["f1"] > 0 and out["cpu"]["f1"] > 0,
-                      f"eval_tracknet gives the learned net f1 {out['cuda']['f1']} (card), "
+                      f"{label} eval_tracknet gives the learned net f1 {out['cuda']['f1']} (card), "
                       f"{out['cpu']['f1']} (cpu)")
             res[name] = dict(cuda=out["cuda"], cpu=out["cpu"], f1_abs_diff=d, seconds=seconds,
                              launches=launches)
     return res
 
 
-def tn_train_phase(root, out_dir, profile):
-    """train_tracknet.run at batch 16 for 2 epochs on the card, its
-    artifacts; one step card vs CPU; the learning check; eval_tracknet."""
+def tn_train_phase(root, out_dir, profile, name=TN_BASE):
+    """train_tracknet.run at configs/tracknet/<name> at batch 16 for 2
+    epochs on the card, its artifacts; one step card vs CPU; the learning
+    check; eval_tracknet."""
     import pandas as pd
     from vision_conglomerate_torch import train_tracknet
     from vision_conglomerate_torch.train.checkpoint import load_checkpoint
 
-    config, config_path = write_tn_train_data(root)
+    config, config_path = write_tn_train_data(root, name)
+    label = tn_label(config)
+    adv = name == TN_ADV
     args = train_tracknet.build_parser().parse_args(
         ["--batch_size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS), "--checkpoint_interval",
          "1", "--lr_schedule", "--no_verbose", "--config_path", config_path, "--device", "cuda"])
@@ -2109,36 +2263,40 @@ def tn_train_phase(root, out_dir, profile):
     seconds, peak = time.time() - t0, torch.cuda.max_memory_allocated()
     hist, evals = pipe._train_metrics, pipe._eval_metrics
     check(len(hist) == TRAIN_EPOCHS and len(evals) == TRAIN_EPOCHS,
-          f"tracknet: {len(hist)} train and {len(evals)} eval records")
-    check(all(np.isfinite(m["loss"]) for m in hist + evals), f"tracknet: losses {hist} {evals}")
+          f"{label}: {len(hist)} train and {len(evals)} eval records")
+    check(all(np.isfinite(m["loss"]) for m in hist + evals), f"{label}: losses {hist} {evals}")
     best = os.path.join(root, "saved_model/tracknet/best_model/TrackNet.ckpt.tar")
     for rel in ("metrics/tracknet/train_metrics.csv", "metrics/tracknet/eval_metrics.csv",
                 "saved_model/tracknet/best_model/config/config.yaml"):
-        check(os.path.isfile(os.path.join(root, rel)), f"tracknet train artifact missing: {rel}")
+        check(os.path.isfile(os.path.join(root, rel)), f"{label} train artifact missing: {rel}")
     ev = pd.read_csv(os.path.join(root, "metrics/tracknet/eval_metrics.csv"))
     check(list(ev.columns) == ["loss", "tp", "tn", "fp", "fn", "precision", "recall", "f1"]
-          and len(ev) == TRAIN_EPOCHS, f"tracknet eval_metrics.csv: {list(ev.columns)}")
+          and len(ev) == TRAIN_EPOCHS, f"{label} eval_metrics.csv: {list(ev.columns)}")
     windows = int(ev[["tp", "tn", "fp", "fn"]].iloc[-1].sum())
     n_eval = TN_CLIPS * (TN_CLIP_FRAMES - 2) - int(0.7 * TN_CLIPS * (TN_CLIP_FRAMES - 2))
-    check(windows == n_eval, f"tracknet eval scored {windows} windows, want {n_eval}")
+    check(windows == n_eval, f"{label} eval scored {windows} windows, want {n_eval}")
     snaps = [f for _, _, fs in os.walk(os.path.join(root, "saved_model/tracknet/checkpoints"))
              for f in fs if f.endswith(".ckpt.tar")]
-    check(len(snaps) == TRAIN_EPOCHS, f"tracknet snapshots: {snaps}")
+    check(len(snaps) == TRAIN_EPOCHS, f"{label} snapshots: {snaps}")
     kernels = [v for k, v in _leaves(load_checkpoint(best)["NETWORK_PARAMS"]["params"])
                if k == "kernel"]
-    check(len(kernels) == 18 and all(k.dtype == np.float32 for k in kernels),
-          f"tracknet best model: {len(kernels)} conv kernels")
+    n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in pipe.model.modules())
+    check(len(kernels) == n_convs and all(k.dtype == np.float32 for k in kernels),
+          f"{label} best model: {len(kernels)} conv kernels for {n_convs} convs")
     step_ms = TRAIN_BATCH / hist[-1]["images_per_sec"] * 1e3
-    print(f"tracknet train: train_tracknet.run, {TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH}, "
-          f"640x352, bf16, Adadelta: {seconds:.2f} s in all; epoch 2: {step_ms:.3f} ms/step "
-          f"(host clock, loader included); peak memory allocated {peak / 2 ** 30:.3f} GiB; "
+    print(f"{label} train: train_tracknet.run, {TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH}, "
+          f"640x352, bf16, {type(pipe.optimizer).__name__} (lr {pipe.current_lr():.3g} after "
+          f"the schedule's steps), {n_convs} convs: {seconds:.2f} s in all; epoch 2: "
+          f"{step_ms:.3f} ms/step (host clock, loader included); peak memory allocated "
+          f"{peak / 2 ** 30:.3f} GiB; "
           f"train losses {[round(m['loss'], 4) for m in hist]}, eval losses "
           f"{[round(m['loss'], 4) for m in evals]}, {windows} eval windows scored")
-    parity = tn_card_vs_cpu_step(config)
+    parity = tn_card_vs_cpu_step(config, TN_ADV_TRAIN_LIMITS if adv else TN_TRAIN_LIMITS)
     learning, net = tn_learning(root, config, out_dir, profile)
     learned = save_tn_checkpoint(os.path.join(root, "learned_ckpt", "TrackNet.ckpt.tar"), net)
     del net
-    evaluated = tn_eval_phase(root, config_path, learned)
+    evaluated = tn_eval_phase(root, config_path, learned, label,
+                              tuple(tn_routed(config)[0]))
     return dict(cli_seconds=seconds, epoch2_step_ms=step_ms, peak_bytes=peak,
                 train_metrics=hist, eval_metrics=evals, card_vs_cpu=parity, learning=learning,
                 eval=evaluated)
@@ -2172,7 +2330,7 @@ def main():
     build_kernels()
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, phase_clock("serve, video, seg serve (1-4, 11-12)"):
         config, ckpt, img_dirs, net = make_inputs(root)
         zero_counters()
         seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "out"))
@@ -2205,19 +2363,25 @@ def main():
         per_batch = sum(1 for s in seen if s[0] == route)
         check(n == n_batches * per_batch,
               f"{route}: {n} launches in {n_batches} batches, the forward routes {per_batch}")
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, phase_clock("train (5-10)"):
         train = train_phase(root, out_dir, args.profile)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, phase_clock("seg train (13-15)"):
         seg_train = seg_train_phase(root)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, phase_clock("tracknet serve (16)"):
         tn_serve_res, tn_seen, tn_extra = tn_serve_phase(root)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, phase_clock("tracknet train (17-19)"):
         tn_train = tn_train_phase(root, out_dir, args.profile)
-    rows, summary = kernel_phase({"serve": (seen, launches),
-                                  "seg_serve": (seg_seen, seg_serve["launches"]),
-                                  "tracknet_serve": (tn_seen, tn_serve_res["launches"])},
-                                 tn_extra)
-    big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
+    with tempfile.TemporaryDirectory() as root, phase_clock("tracknet adv serve (20)"):
+        tn_adv_serve, tn_adv_seen, tn_adv_extra = tn_serve_phase(root, TN_ADV)
+    with tempfile.TemporaryDirectory() as root, phase_clock("tracknet adv train (21-22)"):
+        tn_adv_train = tn_train_phase(root, out_dir, args.profile, TN_ADV)
+    with phase_clock("kernels (3)"):
+        rows, summary = kernel_phase({
+            "serve": (seen, launches), "seg_serve": (seg_seen, seg_serve["launches"]),
+            "tracknet_serve": (tn_seen, tn_serve_res["launches"]),
+            "tracknet_adv_serve": (tn_adv_seen, tn_adv_serve["launches"])},
+            {**tn_extra, **tn_adv_extra})
+        big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
     for entry in summary:
         if entry["name"] == "conv3x3_bias_act":
             entry.update({f"tracknet_dec13_b{TN_BIG_BATCH}_{k}": big[k]
@@ -2229,7 +2393,8 @@ def main():
                        forward_ms_per_batch=fwd_ms, host=host, video=video,
                        model_vs_cpu=model_stats, seg_serve=seg_serve, seg_video=seg_video,
                        seg_train=seg_train, tracknet_serve=tn_serve_res,
-                       tracknet_train=tn_train, tracknet_dec13_big=big, cases=rows,
+                       tracknet_train=tn_train, tracknet_adv_serve=tn_adv_serve,
+                       tracknet_adv_train=tn_adv_train, tracknet_dec13_big=big, cases=rows,
                        kernels=summary), f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))

@@ -3,8 +3,8 @@ in f32 on the CPU: the weight bridge over the TrackNet tree, the train-form
 forward (eval and train mode, with BatchNorm's running statistics), the
 BN-folded deploy form, the inference heatmap with its antialiased resize,
 the full-width channel plan (the 126-channel quirk), the uniform init,
-per-conv remat, the deploy form's routing onto the conv3x3 kernel and the
-kernel wrapper's index check.
+per-conv remat, the deploy form's routing onto the conv3x3 kernel, the
+kernel wrapper's index check and the raises of the architecture choice.
 
 Weights come from a seeded port net (uniform init, non-trivial BatchNorm
 state) bridged with `weights.state_dict_to_flax`, so the JAX net is only
@@ -260,8 +260,18 @@ def test_deploy_form_routes_every_conv_to_conv3x3(monkeypatch):
 
 
 def test_advanced_architecture_raises():
-    with pytest.raises(NotImplementedError, match="§A.12"):
-        TrackNet({**CONFIG, "architecture": "advanced", "advanced_arch_config": {}})
+    """The advanced architecture is ported (tests/test_torch_tracknet_adv_model.py);
+    it raises for a module the port does not hold yet, with its ROADMAP
+    item, and for an unknown one; an unknown architecture raises."""
+    def advanced(first):
+        return {**CONFIG, "architecture": "advanced", "advanced_arch_config": {
+            "encoder_modules": [first, "RepBiPAN"],
+            "decoder_modules": ["DeconvRepBiPAN", "DeconvCSPNet"]}}
+
+    with pytest.raises(NotImplementedError, match="§A.13"):
+        TrackNet(advanced("ResNetBackBone"))
+    with pytest.raises(KeyError):
+        TrackNet(advanced("VGG"))
     with pytest.raises(ValueError):
         TrackNet({**CONFIG, "architecture": "vgg"})
 

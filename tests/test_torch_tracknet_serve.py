@@ -122,9 +122,12 @@ def test_serve_raises_for_what_is_not_ported(tmp_path, checkpoint):
     with pytest.raises(OSError):
         tracknet_runner.run_tracknet_inference(str(tmp_path / "nothing"), checkpoint,
                                                SERVE_CONFIG, device="cpu")
-    with pytest.raises(NotImplementedError, match="§A.12"):
+    with pytest.raises(NotImplementedError, match="§A.13"):
         tracknet_runner.load_tracknet_model(
-            checkpoint, {**CONFIG, "architecture": "advanced"}, device="cpu")
+            checkpoint, {**CONFIG, "architecture": "advanced", "advanced_arch_config": {
+                "encoder_modules": ["CSPNet", "RepBiPAN"],
+                "decoder_modules": ["DeconvRepBiPAN", "BasicHead"]}}, use_reparam=False,
+            device="cpu")
 
 
 TRAIN_CONFIG = {

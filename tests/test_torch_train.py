@@ -92,6 +92,39 @@ def test_batchnorm_train_step_matches_flax():
     np.testing.assert_allclose(got_eval.detach().numpy(), np.asarray(want_eval), atol=1e-5)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_batchnorm_train_statistics_at_f32_rounding(layout):
+    """Train mode on a stem-sized map (2 x 16 x 320 x 320; the train step
+    hands BatchNorm channels_last maps, the NHWC images permuted) is within
+    f32 rounding of the f64 normalisation, on 1 thread and on 4 alike.
+    torch's CPU kernel on a channels_last map alone was 5.4e-5 off on 1
+    thread and 3.5e-6 on 8."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand(2, 16, 320, 320, generator=g) * 0.3
+         + torch.randn(1, 16, 1, 1, generator=g) * 0.3)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm2d(16)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0.0, 0.1, generator=g)
+    xd = x.double()
+    mean = xd.mean((0, 2, 3), keepdim=True)
+    var = xd.var((0, 2, 3), unbiased=False, keepdim=True)
+    want = ((xd - mean) / torch.sqrt(var + bn.eps) * bn.weight.double()[:, None, None]
+            + bn.bias.double()[:, None, None])
+    outs = []
+    for threads in (1, 4):
+        torch.set_num_threads(threads)
+        try:
+            outs.append(bn.train()(x).detach())
+        finally:
+            torch.set_num_threads(1)
+    for got in outs:
+        assert ((got.double() - want).norm() / want.norm()).item() < 1e-6
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-6, atol=1e-6)
+
+
 OPT_CASES = {
     "adam": {"name": "Adam", "lr": 1e-2},
     "adam_wd": {"name": "Adam", "lr": 1e-2, "weight_decay": 0.1, "betas": [0.8, 0.99]},

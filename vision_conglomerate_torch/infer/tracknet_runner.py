@@ -1,8 +1,8 @@
 """TrackNet inference for a video or a folder of frames, the JAX package's
 infer/tracknet_runner.py in PyTorch.
 
-Checkpoint -> deploy form (BatchNorm folded, `use_reparam=True`, the
-default) -> per batch of stacked frames, on the device: the forward, the
+Checkpoint -> deploy form (BatchNorm folded, and canonical RepVGG blocks
+fused, `use_reparam=True`, the default) -> per batch of stacked frames, on the device: the forward, the
 argmax heatmap, its antialiased resize to the original size and the
 centroid decode (`ops.heatmap`); `decode="hough"` takes the heatmaps to
 the host for cv2.HoughCircles instead. Then on the host:
@@ -19,9 +19,11 @@ Outputs go to outputs/tracknet/<datetime>/ unless `storage_path` is given.
 A decode thread keeps the stacked frames `depth` batches ahead of the
 forward and copies them to the card on a side stream
 (`infer.runner._prefetch_batches`; VCT_INFER_PREFETCH=0 runs serially).
-On `cuda` the net runs in bf16 and all its convs run on the conv3x3
-kernel; on `cpu` (only when asked for) it runs in f32 on the kernel's plain
-version. int8 (ROADMAP §A.10) is not in the port yet and raises.
+On `cuda` the net runs in bf16 and its stride-1 convs run on the kernels
+(the base architecture's 18 all on conv3x3; the advanced one's 1x1s on
+matmul, its 3x3s on conv3x3); on `cpu` (only when asked for) it runs in
+f32 on the kernels' plain versions. int8 (ROADMAP §A.10) is not in the
+port yet and raises.
 """
 import logging
 import os
@@ -47,19 +49,35 @@ from .runner import Device, _open_video_writer, _prefetch_batches
 logger = logging.getLogger(__name__)
 
 
+def adv_repvgg_canonical(model_config: Dict[str, Any]) -> bool:
+    """True when every `*repbipan*` module config of the advanced
+    architecture has canonical RepVGG blocks (`repvgg_branch_act: null`;
+    the default is "silu"), so that each block fuses into one conv."""
+    adv = model_config.get("advanced_arch_config", {}) or {}
+    for section in ("encoder_config", "decoder_config"):
+        for key, cfg in (adv.get(section, {}) or {}).items():
+            if "repbipan" in key and (cfg or {}).get("repvgg_branch_act", "silu") is not None:
+                return False
+    return True
+
+
 def load_tracknet_model(weights_path: str, model_config: Dict[str, Any], num_stacks: int = 3,
                         use_reparam: bool = True, device: Device = None) -> TrackNet:
     """The TrackNet of a checkpoint manifest (either package's pickled
-    format), in the deploy form (BatchNorm folded) unless
-    `use_reparam=False`, with conv weights in bf16 on cuda and f32 on the
-    CPU, in eval mode."""
+    format), in the deploy form unless `use_reparam=False`, with conv
+    weights in bf16 on cuda and f32 on the CPU, in eval mode. The deploy
+    form folds every BatchNorm into its conv and, for the advanced
+    architecture with canonical RepVGG blocks (`adv_repvgg_canonical`),
+    fuses each block into one 3x3 conv, as the JAX package does."""
     dev = resolve_device(device)
     state = flax_to_state_dict(load_checkpoint(weights_path)["NETWORK_PARAMS"])
+    fuse_repvgg = (use_reparam and model_config.get("architecture") == "advanced"
+                   and adv_repvgg_canonical(model_config))
     if use_reparam:
-        state = deploy_transform(state, fuse_repvgg=False)
+        state = deploy_transform(state, fuse_repvgg=fuse_repvgg)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    model = TrackNet(model_config, in_channels=3 * num_stacks, folded=use_reparam, dtype=dtype,
-                     device=dev)
+    model = TrackNet(model_config, in_channels=3 * num_stacks, folded=use_reparam,
+                     deploy=fuse_repvgg, dtype=dtype, device=dev)
     model.load_state_dict(state)
     return cast_conv_weights(model, dtype).eval()
 

@@ -124,7 +124,9 @@ class DetectionNet(nn.Module):
         kw = dict(folded=folded, device=device)
         self.backbone = bb_spec.cls(3, **bb_cfg, **kw)
         bb_out = bb_spec.out_channels(**bb_cfg)
-        self.neck = neck_spec.cls(bb_out, **neck_cfg, deploy=deploy, **kw)
+        if registry.takes(neck_spec.cls, "deploy"):
+            neck_cfg["deploy"] = deploy
+        self.neck = neck_spec.cls(bb_out, **neck_cfg, **kw)
         neck_out = neck_spec.out_channels(bb_out, **neck_cfg)
         self.head = nn.ModuleList([
             head_spec.cls(c, num_classes, num_anchors=self.num_anchors,

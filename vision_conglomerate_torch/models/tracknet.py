@@ -1,5 +1,4 @@
-"""TrackNet, the base architecture, the JAX package's models/tracknet.py in
-PyTorch.
+"""TrackNet, the JAX package's models/tracknet.py in PyTorch.
 
 Input: 3 * num_stacks stacked RGB frames, newest first, NCHW (a batch of
 NHWC frames permuted to NCHW is already channels_last). Output: (B, 256,
@@ -24,8 +23,18 @@ conv3x3 kernel when their input lies on the card, `dec_13` included.
 for the backward pass (`nn.blocks.stage`), as the JAX package wraps them
 in `maybe_remat`.
 
-The advanced architecture (CSPNet + RepBiPAN encoder, DeconvRepBiPAN +
-DeconvCSPNet decoder) is not in the port yet and raises (ROADMAP §A.12).
+Advanced: two registered encoder modules and two decoder modules, chained
+by name through `registry.TRACKNET_MODULES` (the shipped
+config_advanced.yaml: CSPNet + RepBiPAN, DeconvRepBiPAN + DeconvCSPNet;
+BiPAN and DeconvBiPAN also fit). Each module's config is its
+`<name.lower()>_config` block; `deploy` (fused canonical RepVGG blocks) and
+`remat` reach only the modules that take them, `folded` every one. CSPNet
+takes the 3 * num_stacks frame channels through its 6x6/s2 stem, so H and
+W must be multiples of 32. In the deploy form every folded 1x1 conv runs
+on the matmul kernel and every stride-1 3x3 conv (the fused RepBlocks, the
+C3 and CSPSPPF 3x3s, each ConvBNormUpsample's conv, `deconv4` included) on
+the conv3x3 kernel; the stem, the 3x3/s2 downsamples, pools and resizes
+stay on PyTorch ops.
 """
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -33,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import registry
 from ..nn.blocks import ConvBNorm, stage
 from ..ops.resize import resize_nchw
 
@@ -120,6 +130,59 @@ class BaseTrackNetDecoder(nn.Module):
         return self.dec_13(x)
 
 
+def _tracknet_module(name: str, in_channels, config: Dict[str, Any], deploy: bool,
+                     remat: bool, folded: bool, device, **extra):
+    """(module, its output widths) of a TRACKNET_MODULES entry, built on
+    `in_channels` from the `<name.lower()>_config` block of `config`."""
+    spec = registry.resolve(registry.TRACKNET_MODULES, name)
+    cfg = registry.component_config(config, name)
+    if registry.takes(spec.cls, "deploy"):
+        cfg["deploy"] = deploy
+    if remat and registry.takes(spec.cls, "remat"):
+        cfg.setdefault("remat", True)
+    module = spec.cls(in_channels, **extra, **cfg, folded=folded, device=device)
+    return module, spec.out_channels(in_channels, **cfg)
+
+
+class AdvTrackNetEncoder(nn.Module):
+    """Two registered modules in a chain (CSPNet then RepBiPAN in the
+    shipped config): frames -> four maps at strides 4/8/16/32."""
+
+    def __init__(self, in_channels: int, encoder_modules: Sequence[str], config: Dict[str, Any],
+                 deploy: bool = False, remat: bool = False, folded: bool = False, device=None):
+        super().__init__()
+        if len(encoder_modules) != 2:
+            raise ValueError(f"the encoder chains two modules, got {list(encoder_modules)}")
+        ch = in_channels
+        for i, name in enumerate(encoder_modules):
+            module, ch = _tracknet_module(name, ch, config, deploy, remat, folded, device)
+            setattr(self, f"enc_module_p{i + 1}", module)
+        self.out_channels = tuple(ch)
+
+    def forward(self, x: torch.Tensor) -> Sequence[torch.Tensor]:
+        return self.enc_module_p2(self.enc_module_p1(x))
+
+
+class AdvTrackNetDecoder(nn.Module):
+    """Two registered modules in a chain (DeconvRepBiPAN then DeconvCSPNet
+    in the shipped config): four maps -> `out_channels` logits at full
+    resolution."""
+
+    def __init__(self, fmap_channels: Sequence[int], out_channels: int,
+                 decoder_modules: Sequence[str], config: Dict[str, Any], deploy: bool = False,
+                 remat: bool = False, folded: bool = False, device=None):
+        super().__init__()
+        if len(decoder_modules) != 2:
+            raise ValueError(f"the decoder chains two modules, got {list(decoder_modules)}")
+        self.dec_module_p1, ch = _tracknet_module(decoder_modules[0], fmap_channels, config,
+                                                  deploy, remat, folded, device)
+        self.dec_module_p2, _ = _tracknet_module(decoder_modules[1], ch, config, deploy, remat,
+                                                 folded, device, out_channels=out_channels)
+
+    def forward(self, fmaps: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.dec_module_p2(self.dec_module_p1(fmaps))
+
+
 def heatmap_from_logits(logits: torch.Tensor,
                         og_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(B, 256, H, W) logits -> (B, H, W) uint8: argmax over the classes;
@@ -135,22 +198,31 @@ def heatmap_from_logits(logits: torch.Tensor,
 
 class TrackNet(nn.Module):
     """Heatmap tracker. `config` is the `model_config` dict (architecture
-    "base"); `in_channels` is 3 * num_stacks. Parameters are f32 and the
-    network computes in `dtype`; the serve form casts its conv weights to
-    `dtype` (`nn.blocks.cast_conv_weights`, applied by
-    `infer/tracknet_runner.py`)."""
+    "base" or "advanced"); `in_channels` is 3 * num_stacks. `folded=True`
+    builds BN-folded convs and `deploy=True` fused canonical RepVGG blocks
+    (advanced only; the weights from `nn.reparam.deploy_transform`).
+    Parameters are f32 and the network computes in `dtype`; the serve form
+    casts its conv weights to `dtype` (`nn.blocks.cast_conv_weights`,
+    applied by `infer/tracknet_runner.py`)."""
 
     def __init__(self, config: Dict[str, Any], in_channels: int = 9, folded: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 deploy: bool = False, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         arch = config["architecture"]
-        if arch == "advanced":
-            raise NotImplementedError(
-                "the advanced TrackNet architecture is not in the port yet (ROADMAP §A.12)")
-        if arch != "base":
+        if arch not in ("base", "advanced"):
             raise ValueError(f"Only base and advanced architectures are supported, got {arch}")
         self.dtype = dtype
         remat = bool(config.get("remat", False))
+        if arch == "advanced":
+            cfg = config["advanced_arch_config"]
+            self.encoder = AdvTrackNetEncoder(
+                in_channels, cfg["encoder_modules"], cfg.get("encoder_config", {}) or {},
+                deploy=deploy, remat=remat, folded=folded, device=device)
+            self.decoder = AdvTrackNetDecoder(
+                self.encoder.out_channels, NUM_CLASSES, cfg["decoder_modules"],
+                cfg.get("decoder_config", {}) or {}, deploy=deploy, remat=remat, folded=folded,
+                device=device)
+            return
         cfg = config["base_arch_config"]
         enc_cfg = dict(cfg.get("encoder_config", {}) or {})
         dec_cfg = dict(cfg.get("decoder_config", {}) or {})

@@ -14,8 +14,8 @@ single fused 3x3 `conv_reparam` (`nn.reparam.reparameterize_params`). In
 that form the stride-1 convs run on the port's CUDA kernels when their
 input lies on the card: every folded 1x1 conv on `ops.fused_matmul`, every
 folded stride-1 3x3 conv and every `conv_reparam` on `ops.conv3x3`. The
-6x6/s2 stem, the 3x3/s2 downsamples, pooling, resizes and the head's plain
-1x1 layers stay on PyTorch ops.
+6x6/s2 stem, the 3x3/s2 downsamples, transpose convs, pooling, resizes and
+the head's plain 1x1 layers stay on PyTorch ops.
 
 Numerics follow the JAX package: parameters are f32 and each conv casts its
 weight and bias to the activations' dtype at the call, so gradients land in
@@ -160,6 +160,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if x.device.type == "cpu":
+            # torch's CPU kernel reduces a channels_last map (the NHWC images
+            # permuted) with float partial sums: its statistics are off by up
+            # to 5e-5 relative and move with the thread count; its
+            # contiguous kernel is at f32 rounding, as cuDNN's is
+            x = x.contiguous()
         # momentum 1: the scratch buffers become the batch mean and the
         # unbiased batch variance
         y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight, self.bias,
@@ -204,6 +210,58 @@ class ConvBNorm(nn.Module):
             return apply_activation(conv2d(x, self.conv), self.activation)
         y = apply_activation(self.norm(conv2d(x, self.conv).float()), self.activation)
         return y.to(x.dtype)
+
+
+class ConvTransposeBNorm(nn.Module):
+    """ConvTranspose2d + BatchNorm (f32) + activation, with torch's crop
+    padding: output (i - 1) * s - 2p + k. `folded=True` is the deploy form,
+    whose transpose conv carries the folded BatchNorm and always has a bias.
+
+    The weight is torch's (I, O, kh, kw). flax's ConvTranspose, which the
+    JAX package uses, does not flip its kernel (kh, kw, I, O); this weight
+    is that kernel flipped in both spatial dims (`weights.py` bridges it).
+    It stays on PyTorch's transpose conv in every form."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
+                 stride: IntPair = 1, padding: Optional[IntPair] = None,
+                 activation: Optional[str] = "silu", use_bias: bool = True,
+                 no_batchnorm: bool = False, folded: bool = False, device=None):
+        super().__init__()
+        self.activation = activation
+        self.folded = folded
+        self.no_batchnorm = no_batchnorm
+        self.conv_transpose = nn.ConvTranspose2d(
+            in_channels, out_channels, _pair(kernel_size), _pair(stride), _pair(padding or 0),
+            bias=use_bias or folded, device=device)
+        if not (folded or no_batchnorm):
+            self.norm = BatchNorm2d(out_channels, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.conv_transpose
+        bias = None if ct.bias is None else ct.bias.to(x.dtype)
+        y = F.conv_transpose2d(x, ct.weight.to(x.dtype), bias, ct.stride, ct.padding)
+        if self.folded or self.no_batchnorm:
+            return apply_activation(y, self.activation)
+        return apply_activation(self.norm(y.float()), self.activation).to(x.dtype)
+
+
+class ConvBNormUpsample(nn.Module):
+    """A 3x3 ConvBNorm (stride 1, pad 1) followed by a resize by `scale`
+    (nearest x2 in every config). With `no_batchnorm` it is a conv with its
+    bias and the activation (DeconvCSPNet's `deconv4`). Folded, its conv
+    runs on the conv3x3 kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int, scale: float,
+                 upsample_mode: str = "nearest", activation: Optional[str] = "silu",
+                 no_batchnorm: bool = False, folded: bool = False, device=None):
+        super().__init__()
+        self.scale = scale
+        self.upsample_mode = upsample_mode
+        self.conv = ConvBNorm(in_channels, out_channels, 3, 1, 1, activation=activation,
+                              no_batchnorm=no_batchnorm, folded=folded, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return resize_nchw(self.conv(x), self.scale, self.upsample_mode)
 
 
 class RepVGGBlock(nn.Module):
@@ -362,6 +420,29 @@ class C3Module(nn.Module):
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """k x k max pool, stride 1, padded with -inf to keep the size."""
     return F.max_pool2d(x, k, stride=1, padding=k // 2)
+
+
+class SPPFModule(nn.Module):
+    """SPPF: a 1x1 conv, three chained k x k max pools (stride 1), a 1x1
+    conv over the concat. The concat is the upstream's [y, p2, p2, p3]: p1
+    is computed and unused, p2 appears twice (a quirk kept for weight and
+    metric parity)."""
+
+    def __init__(self, in_channels: int, out_channels: int, e: float = 0.5,
+                 pool_kernel_size: int = 5, folded: bool = False, device=None):
+        super().__init__()
+        c_h = int(out_channels * e)
+        self.pool_kernel_size = pool_kernel_size
+        self.conv1 = ConvBNorm(in_channels, c_h, 1, folded=folded, device=device)
+        self.conv2 = ConvBNorm(4 * c_h, out_channels, 1, folded=folded, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.pool_kernel_size
+        y = self.conv1(x)
+        p1 = max_pool_same(y, k)
+        p2 = max_pool_same(p1, k)
+        p3 = max_pool_same(p2, k)
+        return self.conv2(torch.cat([y, p2, p2, p3], dim=1))
 
 
 class CSPSPPFModule(nn.Module):

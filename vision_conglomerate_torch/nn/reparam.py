@@ -3,9 +3,11 @@
 The JAX package's nn/reparam.py, over the port's state (a flat state_dict)
 instead of flax (params, batch_stats) trees:
 
-- `fold_conv_bn_params`: every ConvBNorm's BatchNorm folds into its conv,
-  w' = w * gamma/std, b' = (b - mean) * gamma/std + beta, std =
-  sqrt(var + eps). The result loads into modules built with `folded=True`.
+- `fold_conv_bn_params`: every ConvBNorm's (and ConvTransposeBNorm's)
+  BatchNorm folds into its conv, w' = w * gamma/std, b' = (b - mean) *
+  gamma/std + beta, std = sqrt(var + eps), scaling the weight's output
+  channels: dim 0 of a conv's (O, I, kh, kw), dim 1 of a transpose conv's
+  (I, O, kh, kw). The result loads into modules built with `folded=True`.
 - `reparameterize_params`: every canonical RepVGG block (3x3 conv-BN, 1x1
   conv-BN, optional identity BN) fuses into one 3x3 `conv_reparam`; the 1x1
   kernel and the identity are zero-padded to 3x3. The result loads into
@@ -24,15 +26,19 @@ BN_EPS = 1e-5
 State = Dict[str, torch.Tensor]
 
 
-def _fold(weight: torch.Tensor, bias, state: State, bn: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold BatchNorm `bn` (a key prefix) into an OIHW conv weight."""
+def _fold(weight: torch.Tensor, bias, state: State, bn: str,
+          out_dim: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold BatchNorm `bn` (a key prefix) into a conv weight whose output
+    channels are dim `out_dim` (0 for OIHW, 1 for a transpose conv's IOHW)."""
     gamma = state[f"{bn}.weight"].float()
     beta = state[f"{bn}.bias"].float()
     mean = state[f"{bn}.running_mean"].float()
     scale = gamma / torch.sqrt(state[f"{bn}.running_var"].float() + BN_EPS)
     if bias is None:
         bias = torch.zeros_like(mean)
-    return weight.float() * scale[:, None, None, None], (bias.float() - mean) * scale + beta
+    shape = [1, 1, 1, 1]
+    shape[out_dim] = -1
+    return weight.float() * scale.view(shape), (bias.float() - mean) * scale + beta
 
 
 def _key(prefix: str, rest: str) -> str:
@@ -51,13 +57,18 @@ def _drop(state: State, prefix: str) -> State:
 
 def fold_conv_bn_params(state: State) -> State:
     """Fold each `P.norm` BatchNorm into `P.conv` (every ConvBNorm: all are
-    batchnorm-first). Other entries pass through."""
+    batchnorm-first) or `P.conv_transpose` (ConvTransposeBNorm). Other
+    entries pass through."""
     out = dict(state)
     for p in _prefixes(state, "norm.running_mean"):
-        conv = _key(p, "conv")
-        if f"{conv}.weight" not in state:
+        for name, out_dim in (("conv", 0), ("conv_transpose", 1)):
+            conv = _key(p, name)
+            if f"{conv}.weight" in state:
+                break
+        else:
             continue
-        w, b = _fold(state[f"{conv}.weight"], state.get(f"{conv}.bias"), state, _key(p, "norm"))
+        w, b = _fold(state[f"{conv}.weight"], state.get(f"{conv}.bias"), state, _key(p, "norm"),
+                     out_dim)
         out = _drop(out, _key(p, "norm"))
         out[f"{conv}.weight"] = w
         out[f"{conv}.bias"] = b

@@ -7,6 +7,10 @@ transposes (the rules of the JAX package's `tools/torch_port.py`, kept here
 as the port's own copy):
 
 - conv weight (O, I, kh, kw)          <-> kernel (kh, kw, I, O)
+- `conv_transpose` weight (I, O, kh, kw) <-> kernel (kh, kw, I, O), flipped
+  in both spatial dims: flax's ConvTranspose does not flip its kernel and
+  torch's conv_transpose2d does (the JAX package's own
+  `tools/torch_port.py` maps it without the flip)
 - BatchNorm weight / bias             <-> params .../norm/BatchNorm_0/{scale, bias}
 - BatchNorm running_mean / running_var <-> batch_stats .../BatchNorm_0/{mean, var}
 - sequence index `name.i`             <-> `name_i`
@@ -55,6 +59,11 @@ def _flax_path(parts):
     return out
 
 
+def _flip_hw(kernel: np.ndarray) -> np.ndarray:
+    """A (kh, kw, ...) kernel flipped in both spatial dims (a copy)."""
+    return np.ascontiguousarray(kernel[::-1, ::-1])
+
+
 def state_dict_to_flax(state_dict: Dict[str, Any]) -> Dict[str, Any]:
     """A port state_dict -> {"params": ..., "batch_stats": ...} of numpy
     arrays, the JAX package's variables tree."""
@@ -77,6 +86,10 @@ def state_dict_to_flax(state_dict: Dict[str, Any]) -> Dict[str, Any]:
         elif not path:  # top-level parameters (anchors)
             for leaf, val in leaves.items():
                 _set(params, (leaf,), val)
+        elif path[-1] == "conv_transpose":  # ConvTranspose2d
+            _set(params, path + ("kernel",), _flip_hw(leaves["weight"].transpose(2, 3, 0, 1)))
+            if "bias" in leaves:
+                _set(params, path + ("bias",), leaves["bias"])
         else:  # Conv2d
             _set(params, path + ("kernel",), leaves["weight"].transpose(2, 3, 1, 0))
             if "bias" in leaves:
@@ -122,6 +135,8 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             base = _torch_key(mod[:-1])
             put(f"{base}.{'weight' if leaf == 'scale' else 'bias'}", val)
             state[f"{base}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        elif leaf == "kernel" and mod and mod[-1] == "conv_transpose":  # ConvTranspose2d
+            put(f"{_torch_key(mod)}.weight", _flip_hw(np.asarray(val)).transpose(2, 3, 0, 1))
         elif leaf == "kernel":  # Conv2d
             put(f"{_torch_key(mod)}.weight", np.asarray(val).transpose(3, 2, 0, 1))
         else:
