@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection, segmentation and TrackNet (base and
-advanced) paths on one NVIDIA GPU and hold its CUDA kernels against their
-plain PyTorch versions.
+advanced) paths on one NVIDIA GPU, in bf16 and in the int8
+post-training-quantized serve form, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also writes torch.profiler tables
@@ -164,17 +165,53 @@ Phases (any failure exits non-zero; nothing is caught):
    learned net.
 22. tracknet adv eval: phase 19 on the advanced checkpoints; both kernels
    must launch in the --deploy runs.
+23. int8 serve: the serve checkpoint through `run_detection_inference(
+   quantize="int8")` on the 8 images at batch 4: the first batch
+   calibrates on the card (one bf16 deploy forward), then every batch runs
+   int8. All counters are zeroed before and read after: both s8 kernels
+   must launch, their launches (the s8 matmul's include the im2col GEMMs
+   of the stem and the 3x3/s2 convs) a batch times the batches, as a global
+   forward hook records them. Warm int8 images/s as in phase 2 (not for
+   seg: its serving is host-bound by mask handling, phase 11). Card vs
+   CPU on one batch: the card calibrates and quantizes, the CPU reference
+   (f32 activations, plain versions) takes the card's q parameters; the
+   decoded predictions within INT8_MODEL_LIMITS, and the calibration
+   absmax gap card (bf16) vs CPU (f32) per conv printed. The int8
+   forward's ms a batch beside the bf16 deploy form's (phase 2).
+24. int8 seg serve: phase 23 for the seg checkpoint (INT8_SEG_MODEL_LIMITS,
+   INT8_PROTO_LIMITS).
+25. tracknet int8 serve (in phase 16): the clip at batch 32 with
+   quantize="int8": the s8 conv kernel and the bf16 conv3x3 kernel (for
+   dec_13, which int8 leaves in bf16) must launch, each as recorded;
+   warm frames/s in int8; card vs CPU logits with the card's q parameters
+   (INT8_TN_LOGIT_LIMITS); int8 forward ms beside bf16.
+26. tracknet adv int8 serve (in phase 20): phase 25 for the advanced net
+   (both s8 kernels, the bf16 conv3x3 for deconv4; INT8_TN_ADV_LOGIT_LIMITS).
+   Phases 9, 15, 19 and 22 also run their CLI with --quantize int8 on the
+   learned net, card and CPU: |card - cpu| within the CLI's card-vs-CPU
+   limit, |int8 - bf16| (card) within INT8_EVAL_GAP, the s8 conv launched.
+27. s8 kernels: as phase 3, every s8 shape of the four int8 serve paths
+   (TrackNet's at batch 32 and its 6-window tail) and ragged and
+   element-path shapes (Cin or K 8 mod 16, Cin 9 and 126), on random int8
+   operands against the plain version (exact f64 sums, the f32 epilogue)
+   within |k - p| <= S8_RTOL |p| + S8_ATOL, one bf16 ulp; times of the
+   kernel, the plain version and the library call (torch._int_mm on the
+   1x1's matrix or the 3x3's im2col, then the epilogue in torch) beside
+   the bound max(bytes / 3.35 TB/s, 2 M K N / 1979 TOP/s int8).
 The kernel phase (3) runs last, over the shapes of the four serve paths
 (TrackNet's, base and advanced: every shape its serve run launched, at
 batch 32, 8 and 6), and prints each kernel's sums per batch of each path
 (TrackNet's per batch of 32); then dec_13 at batch 64 (3.7e9 output
 elements, past 2^31) against the plain conv of its last image.
-With --profile, 3 fixed-batch train steps are profiled too: device-busy
-share and the top device ops (chiprun_out/train_profile.txt, and
+With --profile, 3 fixed-batch train steps and 3 int8 serve forwards
+(chiprun_out/int8_serve_profile.txt) are profiled too: device-busy share
+and the top device ops (chiprun_out/train_profile.txt, and
 chiprun_out/tn_train_profile.txt and tn_adv_train_profile.txt for
 TrackNet).
 
-Output: per-shape lines, then a `{"kernels": [...]}` JSON line, the card's
+Output: per-shape lines, then a `{"kernels": [...]}` JSON line (the two
+bf16 kernels with phase 2's launches, the two s8 kernels with phase
+23's), the card's
 name and power limit, and as the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Details go to chiprun_out/chip_smoke.json. Without CUDA, or outside a
@@ -196,6 +233,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 NUM_CLASSES = 80
 N_IMAGES = 8
@@ -288,6 +326,17 @@ KERNELS = {
                     source="vision_conglomerate_torch/csrc/conv3x3_bias_act.cu",
                     replaces="vision_conglomerate_tpu/ops/conv_pallas.py:101"),
 }
+# The s8 kernels of the int8 serve form. They replace no Pallas kernel: the
+# JAX package computes its int8 convs as XLA convs in quantized_conv
+# (nn/quantize.py:67), which `replaces` names.
+S8_KERNELS = {
+    "matmul_s8": dict(name="matmul_s8_bias_act", route="cuda",
+                      source="vision_conglomerate_torch/csrc/matmul_s8_bias_act.cu",
+                      replaces="vision_conglomerate_tpu/nn/quantize.py:67"),
+    "conv3x3_s8": dict(name="conv3x3_s8_bias_act", route="cuda",
+                       source="vision_conglomerate_torch/csrc/conv3x3_s8_bias_act.cu",
+                       replaces="vision_conglomerate_tpu/nn/quantize.py:67"),
+}
 
 
 def fail(msg: str):
@@ -325,8 +374,8 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak_ops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -337,9 +386,18 @@ def counters():
     return matmul_bias_act, conv3x3_bias_act
 
 
+def s8_counters():
+    from vision_conglomerate_torch.ops.int8 import conv3x3_s8_bias_act, matmul_s8_bias_act
+
+    return matmul_s8_bias_act, conv3x3_s8_bias_act
+
+
 def zero_counters():
-    for fn in counters():
+    from vision_conglomerate_torch.ops.int8 import conv_s8_bias_act
+
+    for fn in counters() + s8_counters():
         fn.launches = 0
+    conv_s8_bias_act.calls = 0
 
 
 def read_counters():
@@ -347,11 +405,23 @@ def read_counters():
     return {"matmul": mm.launches, "conv3x3": conv.launches}
 
 
+def read_s8_counters():
+    """The s8 kernels' launches and the calls of the int8 im2col route
+    (`im2col`: the stem and the 3x3/s2 convs, whose GEMM is a launch of
+    the s8 matmul kernel)."""
+    from vision_conglomerate_torch.ops.int8 import conv_s8_bias_act
+
+    mm, conv = s8_counters()
+    return {"matmul_s8": mm.launches, "conv3x3_s8": conv.launches,
+            "im2col": conv_s8_bias_act.calls}
+
+
 def build_kernels():
     from vision_conglomerate_torch.ops import _cuda
 
     t0 = time.time()
-    logs = _cuda.build(["matmul_bias_act", "conv3x3_bias_act"])
+    logs = _cuda.build(["matmul_bias_act", "conv3x3_bias_act", "matmul_s8_bias_act",
+                        "conv3x3_s8_bias_act"])
     print(f"build: {time.time() - t0:.1f} s for {len(logs)} kernel sources (nvcc, sm_90a)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -392,7 +462,7 @@ def make_inputs(root: str):
     return config, ckpt, img_dirs, net
 
 
-def serve(config, ckpt, img_dir, storage, task="detection"):
+def serve(config, ckpt, img_dir, storage, task="detection", quantize=None):
     """One run_detection_inference call at this script's settings;
     returns (host-clock seconds, output dir)."""
     from vision_conglomerate_torch.infer.runner import run_detection_inference
@@ -400,7 +470,7 @@ def serve(config, ckpt, img_dir, storage, task="detection"):
     t0 = time.time()
     out = run_detection_inference(img_dir, ckpt, config, task=task, batch_size=BATCH,
                                   score_threshold=0.01, with_summary=True, storage_path=storage,
-                                  device="cuda")
+                                  device="cuda", quantize=quantize)
     torch.cuda.synchronize()
     return time.time() - t0, out
 
@@ -412,9 +482,9 @@ def kernel_conv(m):
 
     conv = None
     if isinstance(m, ConvBNorm) and m.folded:
-        conv = m.conv
+        conv = getattr(m, "conv", None)  # none in the int8 form
     elif isinstance(m, RepVGGBlock) and m.deploy:
-        conv = m.conv_reparam
+        conv = getattr(m, "conv_reparam", None)
     route = conv is not None and kernel_route(conv, m.activation)
     return (route, conv) if route else None
 
@@ -435,14 +505,17 @@ def record_kernel_shapes(model):
 @contextlib.contextmanager
 def recording_kernel_shapes():
     """Lists, as record_kernel_shapes does, every kernel-routed conv that
-    runs inside the block, in any model: a global forward hook, for entry
-    points that build their model themselves."""
+    runs inside the block, in any model, and every int8 conv (`int8_conv`):
+    a global forward hook, for entry points that build their model
+    themselves."""
     seen = []
 
     def hook(mod, inp, out):
         routed = kernel_conv(mod)
         if routed:
             seen.append((routed[0], tuple(inp[0].shape), routed[1].out_channels, mod.activation))
+        elif int8_conv(mod):
+            seen.append(int8_conv(mod, tuple(inp[0].shape)))
 
     handle = torch.nn.modules.module.register_module_forward_hook(hook)
     try:
@@ -548,27 +621,51 @@ def host_phases(preds, og_img):
             "draw_ms_per_image": draw_ms, "png_encode_ms_per_image": png_ms}
 
 
-def kernel_cases(paths, extra=()):
+RAGGED = {
+    ("matmul", (1, 64, 1025, 1), 64, "silu"),  # M = 1025, not a multiple of 128
+    ("matmul", (1, 20, 100, 1), 5, "relu"),  # K, N not multiples of 8
+    ("conv3x3", (1, 3, 7, 300), 5, "silu"),  # Cin, Cout not multiples of 8
+    ("conv3x3", (1, 40, 20, 20), 24, "silu"),  # 9 * Cin not a multiple of 64
+}
+S8_RAGGED = {
+    ("matmul_s8", (1, 64, 1025, 1), 64, "silu"),  # M = 1025, not a multiple of 128
+    ("matmul_s8", (1, 20, 100, 1), 5, "relu"),  # K, N not multiples of 16
+    ("matmul_s8", (1, 24, 300, 1), 40, "silu"),  # K = 24: 8 mod 16, the element path
+    ("conv3x3_s8", (1, 3, 7, 300), 5, "silu"),  # Cin, Cout not multiples of 16
+    ("conv3x3_s8", (1, 40, 20, 20), 24, "silu"),  # Cin 40: 8 mod 16, the element path
+    ("conv3x3_s8", (2, 9, 44, 80), 64, "relu"),  # TrackNet enc_0's Cin 9 at a small map
+    ("conv3x3_s8", (2, 126, 22, 40), 128, "relu"),  # dec_8's Cin 126 at a small map
+}
+# |s8 kernel - plain| <= S8_RTOL |plain| + S8_ATOL: both hold the same
+# exact int32 sums and round f32 to bf16 once; the kernel's multiply, add
+# and SiLU (__expf) differ from torch's in the last f32 bits, which moves a
+# value by at most one bf16 ulp (2^-8..2^-7 of it). First reading on an
+# H100 (NVIDIA H100 80GB HBM3, 700.00 W, a build check of 19 shapes):
+# max |err| / |plain| 0.0074, exact at 14 of 19 shapes
+S8_RTOL, S8_ATOL = 2.0 ** -7, 1e-6
+
+
+def kernel_cases(paths, extra=(), ragged=RAGGED):
     """Distinct kernel shapes of one batch of each path ({path: shapes
     seen}), each with its launches per batch on every path, plus the
     `extra` shapes (those a path runs in other batches than the one
     listed) and ragged shapes that no path gives."""
     counts = {path: Counter(seen) for path, seen in paths.items()}
-    shapes = set().union(*counts.values(), extra) | {
-        ("matmul", (1, 64, 1025, 1), 64, "silu"),  # M = 1025, not a multiple of 128
-        ("matmul", (1, 20, 100, 1), 5, "relu"),  # K, N not multiples of 8
-        ("conv3x3", (1, 3, 7, 300), 5, "silu"),  # Cin, Cout not multiples of 8
-        ("conv3x3", (1, 40, 20, 20), 24, "silu"),  # 9 * Cin not a multiple of 64
-    }
+    shapes = set().union(*counts.values(), extra) | set(ragged)
     return {shape: {path: c[shape] for path, c in counts.items()} for shape in shapes}
 
 
 def launcher_tile(route, m, n, k):
     """The (BM, BN) tile the C launcher picks for an M x N x K GEMM on card 0."""
-    from vision_conglomerate_torch.ops import _cuda, conv3x3, fused_matmul
+    from vision_conglomerate_torch.ops import _cuda, conv3x3, fused_matmul, int8
 
-    name, module = KERNELS[route]["name"], fused_matmul if route == "matmul" else conv3x3
-    lib = _cuda.load(name, module._ARGTYPES, 0)
+    if route in S8_KERNELS:
+        name = S8_KERNELS[route]["name"]
+        argtypes = int8._MATMUL_ARGTYPES if route == "matmul_s8" else int8._CONV_ARGTYPES
+    else:
+        name = KERNELS[route]["name"]
+        argtypes = (fused_matmul if route == "matmul" else conv3x3)._ARGTYPES
+    lib = _cuda.load(name, argtypes, 0)
     return _cuda.tile(lib, name, m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
@@ -615,38 +712,103 @@ def run_case(route, shape, cout, act, g):
                 tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)))
 
 
-def kernel_phase(paths, extra=None):
+def run_s8_case(route, shape, cout, act, g):
+    """One s8 kernel shape on random int8 operands against its plain
+    version (exact f64 sums, the f32 epilogue, bf16), timed with the plain
+    version and the library call: torch._int_mm (int8 -> int32) on the
+    1x1's matrix, or on the 3x3's im2col, then the same epilogue in torch.
+    The bound counts x and w once (int8), y once (bf16), and 2 M K N
+    operations at the int8 rate."""
+    from vision_conglomerate_torch.ops import int8
+
+    b, cin, h, w = shape
+    dev = "cuda"
+    taps = 1 if route == "matmul_s8" else 9
+    k = taps * cin
+    x = torch.randint(-127, 128, (b, h, w, cin), device=dev, generator=g, dtype=torch.int8)
+    # HWIO view of a channels_last OIHW q_kernel, as the serve path passes it
+    kh = 1 if taps == 1 else 3
+    w_hwio = torch.randint(-127, 128, (cout, kh, kh, cin), device=dev, generator=g,
+                           dtype=torch.int8).permute(1, 2, 3, 0)
+    scale = torch.rand(cout, device=dev, generator=g) * (4.0 / (127 * 127 * k ** 0.5))
+    bias = torch.randn(cout, device=dev, generator=g)
+    pad = (kh // 2, kh // 2)
+    if taps == 1:
+        xm, wm = x.reshape(b * h * w, cin), w_hwio.reshape(cin, cout)
+        kern = lambda: int8.matmul_s8_bias_act(xm, wm, scale, bias, act)  # noqa: E731
+        plain = lambda: int8.matmul_s8_bias_act_plain(  # noqa: E731
+            xm, wm, scale, bias, act, torch.bfloat16)
+    else:
+        kern = lambda: int8.conv3x3_s8_bias_act(x, w_hwio, scale, bias, act)  # noqa: E731
+        plain = lambda: int8.conv3x3_s8_bias_act_plain(  # noqa: E731
+            x, w_hwio, scale, bias, act, torch.bfloat16)
+    if taps == 1:
+        cols, wc = xm, wm.contiguous()
+    else:
+        cols = int8.im2col_s8(x, (kh, kh), (1, 1), pad)
+        wc = int8.im2col_weights(w_hwio, cols.shape[1])
+    lib = lambda: int8.dequantize(  # noqa: E731
+        torch._int_mm(cols, wc), scale, bias, act, torch.bfloat16)
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().reshape(-1)
+    ok = bool((err <= S8_ATOL + S8_RTOL * want.float().abs().reshape(-1)).all())
+    m = b * h * w
+    nbytes = m * cin + k * cout + 2 * m * cout + 8 * cout
+    ops = 2 * m * k * cout
+    bnd, by = bound_ms(nbytes, ops, PEAK_INT8_OPS)
+    try:  # the yardstick only: cuBLAS takes no int8 GEMM of some ragged shapes
+        library = device_ms(lib, iters=5)
+    except RuntimeError as e:
+        print(f"kernel {S8_KERNELS[route]['name']} {list(shape)} -> {cout}: no library time "
+              f"({str(e).splitlines()[0][:120]})")
+        library = None
+    return dict(route=route, shape=list(shape), cout=cout, act=act, ok=ok,
+                max_abs_err=err.max().item(), ms=device_ms(kern),
+                plain_ms=device_ms(plain, iters=1), library_ms=library,
+                bound_ms=bnd, bound_by=by, bytes=nbytes, flops=ops,
+                tile=list(launcher_tile(route, m, cout, k)))
+
+
+def kernel_phase(paths, extra=None, kernels=KERNELS, runner=run_case, ragged=RAGGED,
+                 main="serve"):
     """Every shape of every path against the plain version, timed. paths:
     {path: (shapes seen in one batch's forward, launches on the path's
-    run)}; "serve" is the main path of the JSON line's `launches` and
+    run)}; `main` is the main path of the JSON line's `launches` and
     per-batch sums, and every other path adds its own under its name.
     extra: {shape: what runs it} for shapes that a path launches in its
     other batches (another batch size, a tail), held and timed too but
-    left out of the per-batch sums."""
+    left out of the per-batch sums. `kernels`, `runner` and `ragged`: the
+    bf16 kernels (run_case) or the s8 ones (run_s8_case)."""
     extra = extra or {}
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for (route, shape, cout, act), per_batch in sorted(
-            kernel_cases({p: v[0] for p, v in paths.items()}, extra).items()):
-        r = run_case(route, shape, cout, act, g)
+    cases = kernel_cases({p: [s for s in v[0] if s[0] in kernels] for p, v in paths.items()},
+                         {s: v for s, v in extra.items() if s[0] in kernels}, ragged)
+    for (route, shape, cout, act), per_batch in sorted(cases.items()):
+        r = runner(route, shape, cout, act, g)
         r["launches_per_batch"] = per_batch
         rows.append(r)
         b, cin, h, w = shape
-        if route == "matmul":
+        if route.startswith("matmul"):
             desc, rate = f"M={b * h * w} K={cin} N={cout}", f"{r['bytes'] / r['ms'] / 1e9:.3f} TB/s"
         else:
-            desc, rate = f"B={b} {h}x{w} {cin}->{cout}", f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+            unit = "TOP/s" if route in S8_KERNELS else "TFLOP/s"
+            desc, rate = f"B={b} {h}x{w} {cin}->{cout}", f"{r['flops'] / r['ms'] / 1e9:.1f} {unit}"
         uses = ", ".join(f"{p} x{n}" for p, n in per_batch.items() if n)
         uses = uses + " a batch" if uses else extra.get((route, shape, cout, act), "ragged")
-        print(f"kernel {KERNELS[route]['name']} {desc} ({uses}): "
+        lib = (f"{r['ms'] / r['library_ms']:.2f}x library ({r['library_ms']:.4f})"
+               if r["library_ms"] else "no library time")
+        print(f"kernel {kernels[route]['name']} {desc} ({uses}): "
               f"{r['ms']:.4f} ms = {rate}, {r['ms'] / r['bound_ms']:.1f}x bound "
-              f"({r['bound_ms']:.4f} by {r['bound_by']}), {r['ms'] / r['library_ms']:.2f}x library "
-              f"({r['library_ms']:.4f}), plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}, "
+              f"({r['bound_ms']:.4f} by {r['bound_by']}), {lib}, "
+              f"plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}, "
               f"max |err| {r['max_abs_err']:.3g} {'ok' if r['ok'] else 'MISMATCH'}")
     for r in rows:
         check(r["ok"], f"{r['route']} kernel disagrees with its plain version at {r['shape']}")
     summary = []
-    for route, meta in KERNELS.items():
+    for route, meta in kernels.items():
         mine = [r for r in rows if r["route"] == route]
         entry = dict(meta)
         for path, (_, launches) in paths.items():
@@ -656,19 +818,24 @@ def kernel_phase(paths, extra=None):
                   f"no {path} shapes for {route}")
 
             def total(key):
-                return sum(r[key] * r["launches_per_batch"][path] for r in mine)
+                vals = [r[key] for r in mine if r["launches_per_batch"][path]]
+                if None in vals:  # a library call that refused a path's shape
+                    return None
+                return sum(r[key] * r["launches_per_batch"][path] for r in mine
+                           if r["launches_per_batch"][path])
 
             by_bytes = sum(r["bound_ms"] * r["launches_per_batch"][path] for r in mine
                            if r["bound_by"] == "bytes")
             sums = dict(launches=launches[route], ms=total("ms"), plain_ms=total("plain_ms"),
                         bound_ms=total("bound_ms"),
                         bound_by="bytes" if by_bytes >= total("bound_ms") / 2 else "operations",
-                        library_ms=total("library_ms"), batch=paths[path][0][0][1][0])
-            print(f"kernel {meta['name']}, {path}: per batch of {sums['batch']} {sums['ms']:.4f} ms, "
-                  f"bound {sums['bound_ms']:.4f} ({sums['bound_by']}), library "
-                  f"{sums['library_ms']:.4f}, plain {sums['plain_ms']:.4f}; "
-                  f"{sums['launches']} launches on the path's run")
-            if path == "serve":
+                        library_ms=total("library_ms"),
+                        batch=max(s[1][0] for s in paths[path][0]))
+            lib = "none" if sums["library_ms"] is None else f"{sums['library_ms']:.4f}"
+            print(f"kernel {meta['name']}, {path}: per batch of {sums['batch']} {sums['ms']:.4f} "
+                  f"ms, bound {sums['bound_ms']:.4f} ({sums['bound_by']}), library {lib}, plain "
+                  f"{sums['plain_ms']:.4f}; {sums['launches']} launches on the path's run")
+            if path == main:
                 entry.update(sums, max_abs_err=max(r["max_abs_err"] for r in mine))
             else:
                 entry.update({f"{path}_{k}": v for k, v in sums.items()})
@@ -1302,6 +1469,18 @@ def eval_phase(root, learned, task="detection"):
         res[tag] = dict(cuda={k: out["cuda"][k] for k in keys[:5]},
                         cpu={k: out["cpu"][k] for k in keys[:5]}, abs_diff=diffs,
                         seconds=seconds, launches=launches)
+        if tag == "learned":
+            def run_int8(dev, weights=weights, data_dir=data_dir):
+                argv = ["--weights_path", weights, "--data_dir", data_dir, "--device", dev,
+                        "--quantize", "int8"]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    got = cli.run(cli.build_parser().parse_args(argv))
+                check(list(got) == keys and got["quantize"] == "int8",
+                      f"{name} --quantize int8 ({dev}) gave {list(got)}")
+                return got
+
+            res["learned_int8"] = int8_eval(run_int8, list(limits), out["cuda"], limits,
+                                            f"eval: {name} on {tag}")
     return res
 
 
@@ -1809,7 +1988,8 @@ def save_tn_checkpoint(path, net):
     return path
 
 
-def tn_serve(path, ckpt, config, storage, batch_size, device="cuda", use_reparam=True):
+def tn_serve(path, ckpt, config, storage, batch_size, device="cuda", use_reparam=True,
+             quantize=None):
     """One run_tracknet_inference call; (host-clock seconds, output dir,
     video.mp4 frames, output.csv rows as a DataFrame)."""
     import pandas as pd
@@ -1817,7 +1997,8 @@ def tn_serve(path, ckpt, config, storage, batch_size, device="cuda", use_reparam
 
     t0 = time.time()
     out = run_tracknet_inference(path, ckpt, config, batch_size=batch_size, with_summary=True,
-                                 storage_path=storage, device=device, use_reparam=use_reparam)
+                                 storage_path=storage, device=device, use_reparam=use_reparam,
+                                 quantize=quantize)
     if device == "cuda":
         torch.cuda.synchronize()
     return time.time() - t0, out, video_frames(out), pd.read_csv(os.path.join(out, "output.csv"))
@@ -1912,10 +2093,16 @@ def tn_serve_phase(root, name=TN_BASE):
                                     TN_ADV_LOGIT_LIMITS if adv else TN_LOGIT_LIMITS)
     path = "tracknet_adv_serve" if adv else "tracknet_serve"
     extra = {shape: f"{path} run x{n}, batch {shape[1][0]}" for shape, n in others.items()}
+    int8, int8_batch, int8_tail = tn_int8_serve(
+        root, config, ckpt, clips, folder, fwd_ms,
+        INT8_TN_ADV_LOGIT_LIMITS if adv else INT8_TN_LOGIT_LIMITS)
+    int8["one_batch"] = int8_batch
+    int8["extra"] = {shape: f"{path}_int8 run x{n}, batch {shape[1][0]}"
+                     for shape, n in int8_tail.items()}
     return dict(first_call_seconds={k: v[0] for k, v in runs.items()}, launches=launches,
                 launches_per_batch=per_batch, outputs=stats, warm_frames_per_s=warm,
-                model_vs_cpu=cmp, forward_batch=full, forward_ms_per_batch=fwd_ms), \
-        one_batch, extra
+                model_vs_cpu=cmp, forward_batch=full, forward_ms_per_batch=fwd_ms,
+                int8=int8), one_batch, extra
 
 
 def tn_compare_models(config, ckpt, folder, batch, limits):
@@ -2234,6 +2421,19 @@ def tn_eval_phase(root, config_path, learned_ckpt, label="tracknet", routes=("co
                       f"{out['cpu']['f1']} (cpu)")
             res[name] = dict(cuda=out["cuda"], cpu=out["cpu"], f1_abs_diff=d, seconds=seconds,
                              launches=launches)
+            if tag == "learned" and form:
+                def run_int8(dev, weights=weights, extra=extra):
+                    argv = ["--weights_path", weights, "--device", dev, "--quantize", "int8"]
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        got = eval_tracknet.run(eval_tracknet.build_parser().parse_args(
+                            argv + extra))
+                    check(list(got) == TN_EVAL_KEYS and got["form"] == "int8",
+                          f"eval_tracknet --quantize int8 ({dev}) gave {got}")
+                    return got
+
+                res[f"{tag} int8"] = int8_eval(run_int8, ["f1"], out["cuda"],
+                                               {"f1": TN_EVAL_F1_LIMIT},
+                                               f"{label} eval: eval_tracknet on {tag}")
     return res
 
 
@@ -2302,6 +2502,349 @@ def tn_train_phase(root, out_dir, profile, name=TN_BASE):
                 eval=evaluated)
 
 
+# ---------------------------------------------------------------------------
+# int8: the post-training-quantized serve form (`quantize="int8"`), calibrated
+# on the card in bf16; its 1x1/s1 and 3x3/s1 convs on the s8 kernels, the
+# stem and 3x3/s2 convs on im2col + the s8 matmul, the rest in bf16.
+#
+# Card int8 vs CPU int8 with the card's own q parameters copied to the CPU
+# reference (f32 activations, plain versions), (max, mean) |card - cpu| of
+# one batch: both sides quantize their own activations, bf16 on the card
+# and f32 on the CPU, so x_q differ at some rounding edges. About 3x the
+# first reading on the pinned inputs (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md): detection logits 1.45e-3 and 1.98e-4, boxes 0.125 and
+# 3.93e-3 px; seg logits 1.64e-3 and 2.18e-4, boxes 0.292 and 9.08e-3,
+# coefficients 1.75e-3 and 2.49e-4, protos 2.42e-3 and 2.03e-4; TrackNet
+# logits 0.0658 and 3.85e-3 (max |ref| 1.09), advanced 4.57e-4 and
+# 5.39e-5 (max |ref| 0.0614).
+INT8_MODEL_LIMITS = {"logits": (4.5e-3, 6e-4), "boxes": (0.38, 0.012)}
+INT8_SEG_MODEL_LIMITS = {"logits": (5e-3, 6.6e-4), "boxes": (0.9, 0.028),
+                         "coefs": (5.3e-3, 7.5e-4)}
+INT8_PROTO_LIMITS = (7.3e-3, 6.1e-4)
+INT8_TN_LOGIT_LIMITS = (0.2, 0.012)
+INT8_TN_ADV_LOGIT_LIMITS = (1.4e-3, 1.6e-4)
+# |int8 - bf16 deploy| on the card of the eval CLIs' metrics on the learned
+# nets. First readings (NVIDIA H100 80GB HBM3, 700.00 W): detection mAP@50
+# 0.373 (bf16 0.644, int8 0.272; the CPU's int8 0.282): per-tensor int8
+# activations cost the net overfit for 100 steps on 16 images most of its
+# mAP. That is the scheme's, not a port fault: the card's int8 is the
+# CPU's, and on the CPU the port's int8 mAP@50 of a trained net is the JAX
+# package's (tests/test_torch_int8_trained.py); the limit holds the port
+# near that reading. Seg mask mAP@50 0.0242 and dice 0.0232 (limits 3x);
+# TrackNet f1 0 and 0 (the learned clip's eval split holds 5 windows: one
+# moves f1 by up to 0.2+)
+INT8_EVAL_GAP = {"map50": 0.45, "mask_map50": 0.075, "dice": 0.07, "f1": 0.25}
+
+
+def int8_conv(m, shape=None):
+    """For a conv module in its int8 form, (route, input shape, Cout,
+    activation) as recording_kernel_shapes lists a launch: "matmul_s8" or
+    "conv3x3_s8" where an s8 kernel computes the conv, else "im2col", whose
+    GEMM launches the s8 matmul at (1, K, M, 1): M = B*Ho*Wo rows, K the
+    patch width padded to a multiple of 16. True without `shape`; None for
+    every other module."""
+    from vision_conglomerate_torch.nn.blocks import geometry_route
+
+    if not hasattr(m, "q_kernel"):
+        return None
+    if shape is None:
+        return True
+    stride, padding = m.q_geometry
+    cout, cin, kh, kw = m.q_kernel.shape
+    route = geometry_route((kh, kw), stride, padding, m.activation)
+    if route:
+        return f"{route}_s8", shape, cout, m.activation
+    b, _, h, w = shape
+    ho = (h + 2 * padding[0] - kh) // stride[0] + 1
+    wo = (w + 2 * padding[1] - kw) // stride[1] + 1
+    return "im2col", (1, -(-kh * kw * cin // 16) * 16, b * ho * wo, 1), cout, m.activation
+
+
+def as_launches(seen):
+    """A recorded list with each im2col conv as the s8 matmul launch it is."""
+    return [("matmul_s8", *s[1:]) if s[0] == "im2col" else s for s in seen]
+
+
+def quantize_on(model, x, **forward_kw):
+    """The int8 PTQ of infer.runner.quantize_model_int8 on batch x, for a
+    model a loader built with quantize="int8"; returns the calibration
+    absmax ({path: 0-d tensor})."""
+    from vision_conglomerate_torch.nn.blocks import cast_conv_weights
+    from vision_conglomerate_torch.nn.quantize import collect_calibration, int8_quantize_
+
+    absmax = collect_calibration(model, [x], **forward_kw)
+    int8_quantize_(model, absmax)
+    cast_conv_weights(model, model.dtype)
+    return absmax
+
+
+def copy_int8(src, dst):
+    """Put `dst` (the same net on the CPU, f32 weights) in `src`'s int8
+    form with `src`'s q parameters."""
+    from vision_conglomerate_torch.nn.blocks import set_int8_
+    from vision_conglomerate_torch.nn.quantize import quantizable_modules
+
+    mods = quantizable_modules(dst)
+    for path, m in quantizable_modules(src).items():
+        if hasattr(m, "q_kernel"):
+            set_int8_(mods[path], *(getattr(m, k).cpu() for k in
+                                    ("q_kernel", "q_wscale", "q_xscale", "q_bias")))
+
+
+def calibration_gap(card, cpu):
+    """|card - cpu| / cpu of the calibration absmax per conv: max, median."""
+    gaps = [abs(card[p].item() - cpu[p].item()) / cpu[p].item() for p in cpu]
+    return dict(max=max(gaps), median=float(np.median(gaps)), convs=len(gaps))
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Host-clock ms of fn() once warm, synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / iters * 1e3
+
+
+def held(label, group, got, want, limits):
+    """(max, mean) |got - want| against limits; printed and gated."""
+    diff = (got.float().cpu() - want.float()).abs()
+    stats = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+                 max_ref=want.abs().max().item())
+    print(f"{label}: card int8 vs cpu int8 {group}: max |d| {stats['max_abs_err']:.6g} (limit "
+          f"{limits[0]:g}), mean |d| {stats['mean_abs_err']:.6g} (limit {limits[1]:g}), "
+          f"max |ref| {stats['max_ref']:.6g}")
+    check(stats["max_abs_err"] <= limits[0] and stats["mean_abs_err"] <= limits[1],
+          f"{label}: card int8 {group} differ from the CPU int8 reference")
+    return stats
+
+
+def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=None):
+    """One batch: the card calibrates and quantizes (bf16 activations), the
+    CPU reference takes the card's q parameters; decoded predictions (and
+    seg protos) card vs CPU, the calibration absmax gap, and the int8
+    forward's time beside the bf16 deploy form's."""
+    from vision_conglomerate_torch.data.inference import InferenceImgDataset
+    from vision_conglomerate_torch.infer.runner import detect, load_detection_model
+    from vision_conglomerate_torch.nn.quantize import collect_calibration
+
+    seg = task == "segmentation"
+    label = "int8 seg serve" if seg else "int8 serve"
+    mc = config["model_config"]
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    ds = InferenceImgDataset(img_dir, img_wh=img_wh)
+    items = [ds[i] for i in range(BATCH)]
+    imgs = np.stack([a for a, _ in items])
+    og_hw = items[0][1].shape[:2]
+    x = torch.from_numpy(imgs)
+    gpu, _ = load_detection_model(ckpt, mc, task=task, device="cuda", quantize="int8")
+    cpu, _ = load_detection_model(ckpt, mc, task=task, device="cpu", quantize="int8")
+    card_absmax = quantize_on(gpu, x.cuda().permute(0, 3, 1, 2), inference=True)
+    gap = calibration_gap(card_absmax, collect_calibration(cpu, [x.permute(0, 3, 1, 2)],
+                                                           inference=True))
+    copy_int8(gpu, cpu)
+    got, want = detect(gpu, imgs, og_hw), detect(cpu, imgs, og_hw)
+    torch.cuda.synchronize()
+    (got, got_p), (want, want_p) = (got, want) if seg else ((got, None), (want, None))
+    c = NUM_CLASSES
+    check(tuple(got.shape) == tuple(want.shape) and bool(torch.isfinite(got).all()),
+          f"{label}: predictions {tuple(got.shape)} vs {tuple(want.shape)}, or not finite")
+    groups = {"logits": slice(0, 1 + c), "boxes": slice(1 + c, 5 + c)}
+    if seg:
+        groups["coefs"] = slice(5 + c, None)
+    limits = INT8_SEG_MODEL_LIMITS if seg else INT8_MODEL_LIMITS
+    stats = {g: held(label, g, got[..., sl], want[..., sl], limits[g]) for g, sl in groups.items()}
+    if seg:
+        check(bool(torch.isfinite(got_p).all()), f"{label}: non-finite protos")
+        stats["protos"] = held(label, "protos", got_p, want_p, INT8_PROTO_LIMITS)
+    stats["calibration_gap"] = gap
+    print(f"{label}: calibration absmax card (bf16 activations) vs cpu (f32) over "
+          f"{gap['convs']} convs: |d| / cpu max {gap['max']:.4g}, median {gap['median']:.4g} "
+          f"(reported)")
+    xg = x.cuda()
+
+    def forward():
+        with torch.no_grad():
+            gpu(xg.permute(0, 3, 1, 2), inference=True, og_size=og_hw)
+
+    fwd_ms = host_ms(forward)
+    print(f"{label}: forward + decode at batch {BATCH}: int8 {fwd_ms:.3f} ms/batch, bf16 deploy "
+          f"{bf16_fwd_ms:.3f} (host clock, synchronized)")
+    if profile_path:
+        profile_forward(forward, fwd_ms, profile_path)
+    return stats, fwd_ms
+
+
+def int8_serve_phase(root, config, ckpt, img_dirs, bf16_fwd_ms, task="detection",
+                     profile_path=None):
+    """The checkpoint served in int8 through run_detection_inference on the
+    card (counters zeroed before, read after: each s8 kernel must launch,
+    its launches a batch times the batches; the first batch's calibration
+    runs the bf16 deploy form once), warm images/s in int8, and the card
+    against the CPU (`int8_compare_models`). Returns the results and the
+    int8 conv shapes of one batch."""
+    seg = task == "segmentation"
+    label = "int8 seg serve" if seg else "int8 serve"
+    tag = "int8_seg" if seg else "int8"
+    zero_counters()
+    with recording_kernel_shapes() as run_seen:
+        seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, f"{tag}_out"),
+                                task, "int8")
+    s8, bf16 = read_s8_counters(), read_counters()
+    n_batches = -(-N_IMAGES // BATCH)
+    int8_seen = [s for s in run_seen if s[0] in ("matmul_s8", "conv3x3_s8", "im2col")]
+    recorded = Counter(s[0] for s in int8_seen)
+    per_batch = {r: n // n_batches for r, n in recorded.items()}
+    print(f"{label}: {N_IMAGES} images 1280x720 at batch {BATCH} through "
+          f"run_detection_inference(quantize='int8') in {seconds:.2f} s (first call, with the "
+          f"calibration); launches: s8 {s8}, bf16 {bf16} (the calibration forward); int8 convs "
+          f"a batch {per_batch}")
+    for route in S8_KERNELS:
+        check(s8[route] > 0, f"the {route} kernel never launched on the {label} path")
+    check(s8["im2col"] == recorded["im2col"] > 0
+          and s8["matmul_s8"] == recorded["matmul_s8"] + recorded["im2col"]
+          and s8["conv3x3_s8"] == recorded["conv3x3_s8"]
+          and all(n == per_batch[r] * n_batches for r, n in recorded.items()),
+          f"{label}: launches {s8}, recorded {dict(recorded)} in {n_batches} batches")
+    files = sorted(os.listdir(served))
+    check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
+          f"{label} outputs missing: {files}")
+    warm = t_few = t_many = None
+    if not seg:  # seg serving is host-bound (mask handling): its warm rate is phase 11's
+        t_few, _ = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, f"{tag}_few"),
+                         task, "int8")
+        t_many, _ = serve(config, ckpt, img_dirs[WARM_IMAGES], os.path.join(root, f"{tag}_many"),
+                          task, "int8")
+        warm = (WARM_IMAGES - N_IMAGES) / (t_many - t_few)
+        print(f"{label}: warm end to end {warm:.3f} images/s in int8 = {WARM_IMAGES - N_IMAGES} "
+              f"images / ({t_many:.3f} s - {t_few:.3f} s) (host clock)")
+    stats, fwd_ms = int8_compare_models(config, ckpt, img_dirs[N_IMAGES], task, bf16_fwd_ms,
+                                        profile_path)
+    one_batch = int8_seen[:sum(per_batch.values())]
+    return dict(first_call_seconds=seconds, launches=s8, bf16_launches=bf16,
+                launches_per_batch=per_batch, warm_images_per_s=warm,
+                warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many}, forward_ms_per_batch=fwd_ms,
+                bf16_forward_ms_per_batch=bf16_fwd_ms, model_vs_cpu=stats), as_launches(one_batch)
+
+
+def tn_int8_serve(root, config, ckpt, clips, folder, bf16_fwd_ms, limits):
+    """The TrackNet checkpoint served in int8 on the clip at batch 32
+    (counters zeroed before, read after: the s8 kernels launch, and the
+    bf16 conv3x3 kernel too, for the convs int8 leaves in bf16: dec_13, the
+    advanced net's deconv4), warm frames/s, and card vs CPU logits with the
+    card's q parameters. Returns the results, the int8 and bf16 kernel
+    shapes of one batch of 32 and {shape: launches} of the tail batch."""
+    from vision_conglomerate_torch.data.inference import TrackNetInferenceImgDataset
+    from vision_conglomerate_torch.infer.tracknet_runner import load_tracknet_model
+    from vision_conglomerate_torch.nn.quantize import collect_calibration
+
+    label = f"{tn_label(config)} int8"
+    full = TN_SERVE_BATCHES[-1]
+    zero_counters()
+    with recording_kernel_shapes() as run_seen:
+        first = tn_serve(clips[TN_FRAMES], ckpt, config, os.path.join(root, "tn_int8"), full,
+                         quantize="int8")
+    s8, bf16 = read_s8_counters(), read_counters()
+    calib = sum(tn_routed(config)[0].values())  # the calibration forward's bf16 launches
+    int8_run = run_seen[calib:]
+    routes = Counter(s[0] for s in int8_run)
+    print(f"{label} serve: the clip at batch {full} through run_tracknet_inference("
+          f"quantize='int8') in {first[0]:.2f} s (first call, with the calibration); launches: "
+          f"s8 {s8}, bf16 {bf16} ({calib} of them the calibration forward); int8 run "
+          f"{dict(routes)}")
+    calibration = Counter(s[0] for s in run_seen[:calib])
+    check(s8["conv3x3_s8"] > 0 and bf16["conv3x3"] > calibration["conv3x3"],
+          f"{label}: s8 {s8}, bf16 {bf16}: int8 needs the s8 conv and the bf16 conv3x3 kernel")
+    check(s8["im2col"] == routes["im2col"]
+          and s8["matmul_s8"] == routes["matmul_s8"] + routes["im2col"]
+          and s8["conv3x3_s8"] == routes["conv3x3_s8"],
+          f"{label}: launches {s8}, recorded {dict(routes)}")
+    for route in KERNELS:
+        check(bf16[route] == calibration[route] + routes[route],
+              f"{label}: {bf16[route]} {route} launches, {calibration[route]} + "
+              f"{routes[route]} recorded")
+    check(first[2] == TN_FRAMES and len(first[3]) <= TN_FRAMES - 2,
+          f"{label}: video.mp4 {first[2]} frames, output.csv {len(first[3])} rows")
+    t_short = tn_serve(clips[TN_SHORT], ckpt, config, os.path.join(root, "tn_int8_s"), full,
+                       quantize="int8")[0]
+    t_long = tn_serve(clips[TN_FRAMES], ckpt, config, os.path.join(root, "tn_int8_l"), full,
+                      quantize="int8")[0]
+    warm = (TN_FRAMES - TN_SHORT) / (t_long - t_short)
+    print(f"{label} serve: warm {warm:.3f} frames/s in int8 at batch {full} (host clock)")
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    ds = TrackNetInferenceImgDataset(folder, img_wh=img_wh)
+    x = torch.from_numpy(np.stack([ds[i][0] for i in range(full)]))
+    gpu = load_tracknet_model(ckpt, config["model_config"], device="cuda", quantize="int8")
+    cpu = load_tracknet_model(ckpt, config["model_config"], device="cpu", quantize="int8")
+    xg = x.cuda().permute(0, 3, 1, 2)
+    xc = x[:TN_CPU_IMAGES].permute(0, 3, 1, 2)
+    # the calibration gap on the first windows only (the CPU's forward of
+    # a batch of 32 at 640x352 takes minutes)
+    gap = calibration_gap(collect_calibration(gpu, [xg[:TN_CPU_IMAGES]]),
+                          collect_calibration(cpu, [xc]))
+    quantize_on(gpu, xg)
+    copy_int8(gpu, cpu)
+    with torch.no_grad():
+        got = gpu(xg)[:TN_CPU_IMAGES].float().cpu()
+        want = cpu(xc)
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits on the card")
+    stats = held(f"{label} serve", "logits", got, want, limits)
+    stats["argmax_agreement"] = (got.argmax(1) == want.argmax(1)).float().mean().item()
+    stats["calibration_gap"] = gap
+    print(f"{label} serve: argmax agreement {stats['argmax_agreement']:.4f} (reported); "
+          f"calibration absmax card vs cpu on the first {TN_CPU_IMAGES} windows over "
+          f"{gap['convs']} convs: |d| / cpu max {gap['max']:.4g}, median {gap['median']:.4g} "
+          f"(reported)")
+
+    def forward():
+        with torch.no_grad():
+            gpu(xg, inference=True, og_size=VIDEO_HW)
+
+    fwd_ms = host_ms(forward)
+    print(f"{label} serve: forward + argmax + resize to 1280x720 at batch {full}: int8 "
+          f"{fwd_ms:.3f} ms/batch, bf16 deploy {bf16_fwd_ms:.3f} (host clock, synchronized)")
+    # the run's two forwards, a batch of 32 and the 6-window tail, in order
+    int8_run = as_launches(int8_run)
+    half = len(int8_run) // 2
+    one_batch, tail = int8_run[:half], Counter(int8_run[half:])
+    check(2 * half == len(int8_run) and all(s[1][0] in (1, full) for s in one_batch),
+          f"{label}: {len(int8_run)} launches in the int8 run, not two forwards")
+    return dict(first_call_seconds=first[0], launches=s8, bf16_launches=bf16,
+                launches_per_batch=dict(Counter(s[0] for s in one_batch)),
+                warm_frames_per_s=warm, forward_ms_per_batch=fwd_ms,
+                bf16_forward_ms_per_batch=bf16_fwd_ms, model_vs_cpu=stats), one_batch, tail
+
+
+def int8_eval(run_cli, metrics, bf16_card, limits, label):
+    """An eval CLI with --quantize int8 on the card and the CPU, against the
+    bf16 deploy form's card metrics (`bf16_card`): |card - cpu| within the
+    CLI's card-vs-CPU `limits`, |int8 - bf16| within INT8_EVAL_GAP, and
+    both s8 kernels' launches on the card (TrackNet base: the conv)."""
+    out, launches, seconds = {}, None, {}
+    for dev in ("cuda", "cpu"):
+        zero_counters()
+        t0 = time.time()
+        out[dev] = run_cli(dev)
+        seconds[dev] = time.time() - t0
+        if dev == "cuda":
+            launches = read_s8_counters()
+    diffs = {k: abs(out["cuda"][k] - out["cpu"][k]) for k in metrics}
+    gaps = {k: abs(out["cuda"][k] - bf16_card[k]) for k in metrics}
+    print(f"{label} int8: " + "; ".join(
+        f"{k} card int8 {out['cuda'][k]}, cpu int8 {out['cpu'][k]} (|d| {diffs[k]:.3g}, limit "
+        f"{limits[k]:g}), card bf16 {bf16_card[k]} (|int8 - bf16| {gaps[k]:.3g}, limit "
+        f"{INT8_EVAL_GAP[k]:g})" for k in metrics) + f"; {seconds['cuda']:.2f} s card, "
+        f"{seconds['cpu']:.2f} s cpu; s8 launches {launches}")
+    check(launches["conv3x3_s8"] > 0, f"{label} int8: the s8 conv never launched")
+    for k in metrics:
+        check(diffs[k] <= limits[k], f"{label} int8 {k} card vs cpu differs by {diffs[k]:.3g}")
+        check(gaps[k] <= INT8_EVAL_GAP[k], f"{label} int8 {k} is {gaps[k]:.3g} from bf16")
+    return dict(cuda=out["cuda"], cpu=out["cpu"], abs_diff=diffs, gap_to_bf16=gaps,
+                launches=launches, seconds=seconds)
+
+
 def _leaves(tree):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2313,7 +2856,8 @@ def _leaves(tree):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="write torch.profiler tables of 3 serve forwards and 3 train steps")
+                        help="write torch.profiler tables of 3 serve forwards (bf16 and int8) "
+                             "and 3 train steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script runs on the GPU only")
@@ -2358,6 +2902,12 @@ def main():
         video = video_phase(root, config, net, clips, samples)
         seg_serve, seg_seen, seg = seg_serve_phase(root, img_dirs)
         seg_video = seg_video_phase(root, clips[VIDEO_FRAMES], samples, seg)
+        with phase_clock("int8 serve (23-24; within the phases above)"):
+            int8_serve, int8_seen = int8_serve_phase(
+                root, config, ckpt, img_dirs, fwd_ms, profile_path=os.path.join(
+                    out_dir, "int8_serve_profile.txt") if args.profile else None)
+            int8_seg_serve, int8_seg_seen = int8_serve_phase(
+                root, seg[0], seg[1], img_dirs, seg_serve["forward_ms_per_batch"], "segmentation")
     n_batches = -(-N_IMAGES // BATCH)
     for route, n in launches.items():
         per_batch = sum(1 for s in seen if s[0] == route)
@@ -2382,6 +2932,20 @@ def main():
             "tracknet_adv_serve": (tn_adv_seen, tn_adv_serve["launches"])},
             {**tn_extra, **tn_adv_extra})
         big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
+    with phase_clock("s8 kernels (27)"):
+        tn_int8, tn_adv_int8 = tn_serve_res["int8"], tn_adv_serve["int8"]
+
+        def s8_launches(res):
+            return {r: n for r, n in res["launches"].items() if r in S8_KERNELS and n}
+
+        s8_rows, s8_summary = kernel_phase({
+            "int8_serve": (int8_seen, s8_launches(int8_serve)),
+            "int8_seg_serve": (int8_seg_seen, s8_launches(int8_seg_serve)),
+            "tracknet_int8_serve": (tn_int8.pop("one_batch"), s8_launches(tn_int8)),
+            "tracknet_adv_int8_serve": (tn_adv_int8.pop("one_batch"), s8_launches(tn_adv_int8))},
+            {**tn_int8.pop("extra"), **tn_adv_int8.pop("extra")}, S8_KERNELS, run_s8_case,
+            S8_RAGGED, main="int8_serve")
+    summary += s8_summary
     for entry in summary:
         if entry["name"] == "conv3x3_bias_act":
             entry.update({f"tracknet_dec13_b{TN_BIG_BATCH}_{k}": big[k]
@@ -2395,6 +2959,7 @@ def main():
                        seg_train=seg_train, tracknet_serve=tn_serve_res,
                        tracknet_train=tn_train, tracknet_adv_serve=tn_adv_serve,
                        tracknet_adv_train=tn_adv_train, tracknet_dec13_big=big, cases=rows,
+                       int8_serve=int8_serve, int8_seg_serve=int8_seg_serve, s8_cases=s8_rows,
                        kernels=summary), f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))

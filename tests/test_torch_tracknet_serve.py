@@ -115,10 +115,25 @@ def test_fill_gaps_per_batch():
 
 
 def test_serve_raises_for_what_is_not_ported(tmp_path, checkpoint):
-    clip = _write_clip(str(tmp_path / "tn"), n_frames=4)
-    with pytest.raises(NotImplementedError, match="§A.10"):
+    """What the port leaves out raises; int8 (ROADMAP §A.10), left out
+    until it was done, now serves: on a frame folder it gives the JAX
+    runner's int8 tracks (both in f32, the same int8 arithmetic: x, y, r
+    within 1e-3 px), and without the deploy form it raises, as there."""
+    clip = _write_clip(str(tmp_path / "tn"), n_frames=9, size=(80, 40))
+    kw = dict(batch_size=4, with_summary=True, quantize="int8")
+    f32 = functools.partial(jax_runner.load_tracknet_model, dtype=jnp.float32)
+    with mock.patch.object(jax_runner, "load_tracknet_model", f32):
+        want = jax_runner.run_tracknet_inference(clip, checkpoint, SERVE_CONFIG,
+                                                 storage_path=str(tmp_path / "jax"), **kw)
+    got = tracknet_runner.run_tracknet_inference(clip, checkpoint, SERVE_CONFIG, device="cpu",
+                                                 storage_path=str(tmp_path / "o"), **kw)
+    got_csv, want_csv = (pd.read_csv(os.path.join(d, "output.csv")) for d in (got, want))
+    assert len(got_csv) > 0 and got_csv["frame"].tolist() == want_csv["frame"].tolist()
+    np.testing.assert_allclose(got_csv[["x", "y", "r"]].to_numpy(),
+                               want_csv[["x", "y", "r"]].to_numpy(), atol=1e-3)
+    with pytest.raises(ValueError, match="deploy"):
         tracknet_runner.run_tracknet_inference(clip, checkpoint, SERVE_CONFIG, quantize="int8",
-                                               device="cpu", storage_path=str(tmp_path / "o"))
+                                               use_reparam=False, device="cpu")
     with pytest.raises(OSError):
         tracknet_runner.run_tracknet_inference(str(tmp_path / "nothing"), checkpoint,
                                                SERVE_CONFIG, device="cpu")
@@ -236,11 +251,17 @@ def test_inference_cli_serves_the_trained_checkpoint(trained):
         assert frames_of(os.path.join(out, "video.mp4")).shape[0] == 13
         assert list(pd.read_csv(os.path.join(out, "output.csv")).columns) == [
             "frame", "x", "y", "r"]
-        with pytest.raises(NotImplementedError, match="§A.10"):
-            inference_tracknet.main(["--path", "data/tracknet/game1/Clip1", "--device", "cpu",
-                                     "--quantize", "int8"])
-        with pytest.raises(NotImplementedError, match="§A.10"):
-            eval_tracknet.main(["--device", "cpu", "--quantize", "int8"])
+        # int8 (ROADMAP §A.10) serves and scores: --quantize int8 implies
+        # the deploy form, and eval_tracknet's line says "int8"
+        out = inference_tracknet.main(["--path", "data/tracknet/game1/Clip1", "--device", "cpu",
+                                       "--with_summary", "--batch_size", "4",
+                                       "--quantize", "int8"])
+        assert frames_of(os.path.join(out, "video.mp4")).shape[0] == 13
+        deploy = eval_tracknet.main(["--device", "cpu", "--deploy", "--batch_size", "3"])
+        int8 = eval_tracknet.main(["--device", "cpu", "--quantize", "int8", "--batch_size", "3"])
+        assert int8["form"] == "int8" and list(int8) == list(deploy)
+        assert int8["num_windows"] == deploy["num_windows"]
+        assert int8["eval_loss"] == pytest.approx(deploy["eval_loss"], rel=0.05)
     finally:
         os.chdir(cwd)
 

@@ -1,15 +1,19 @@
-// Implicit-GEMM mainloop for Hopper (sm_90a) shared by the port's two
-// kernels: y = act(A @ W^T + bias), bf16 in and out, f32 accumulation and
-// epilogue, one bf16 store.
+// Implicit-GEMM mainloop for Hopper (sm_90a) shared by the port's
+// kernels: y = act(A @ W^T + bias) with one bf16 store, for bf16 operands
+// (f32 accumulation) and for int8 operands (exact int32 accumulation, then
+// y = act(float(acc) * scale + bias) in f32).
 //
-// It replaces, through its two instantiations, both TPU kernels of the
-// JAX package:
+// Through its bf16 instantiations it replaces both TPU kernels of the JAX
+// package:
 //   TAPS = 9: vision_conglomerate_tpu/ops/conv_pallas.py:conv3x3_bias_act
 //             (csrc/conv3x3_bias_act.cu). A row of A is one output pixel,
 //             K = 9 * Cin walked tap by tap, gathered from the NHWC input.
 //   TAPS = 1: vision_conglomerate_tpu/ops/fused_matmul.py:matmul_bias_act
 //             (csrc/matmul_bias_act.cu). A is the plain (M, K) matrix.
-// W is the (N, K) row-major weight matrix in both.
+// Its int8 instantiations (csrc/conv3x3_s8_bias_act.cu,
+// csrc/matmul_s8_bias_act.cu) are the port's int8 post-training-quantized
+// convs, which the JAX package runs as XLA int8 convs (nn/quantize.py).
+// W is the (N, K) row-major weight matrix in all of them.
 //
 // What bounds it at the detector's serve shapes (batch 4, 640^2): the 3x3
 // convs carry 105.7 GFLOP at 144..2800 FLOPs per byte and are bound by the
@@ -19,9 +23,10 @@
 // rate, and too few blocks at the 20^2 and 40^2 maps (M = 1600 and 6400).
 //
 // Design.
-// - Ring: shared-memory stages of BK = 64 values of K for A (BM rows) and W
-//   (BN rows), as many as fit SMEM_BUDGET (3..8), so that two blocks share
-//   an SM; three stages and three blocks for the matmul's K <= 128. The
+// - Ring: shared-memory stages of one 128-byte row of K (BK = 64 bf16 or
+//   128 int8 values) for A (BM rows) and W (BN rows), as many as fit
+//   SMEM_BUDGET (3..8), so that two blocks share an SM; three stages and
+//   three blocks for the matmul's K of at most two rows. The
 //   copies of the next STAGES - 2 K tiles (two or more in the deep rings)
 //   are in flight while wgmma runs on the current one and the one before
 //   it drains; one __syncthreads per K tile.
@@ -29,21 +34,26 @@
 //   on the stage's mbarrier, zero-filled past N, M and K. The conv's A is
 //   gathered with 16-byte cp.async copies from the pixel each row needs at
 //   this tap, zero-filled (src-size 0) outside the image and past M; each
-//   input element is re-read once per tap from L2. The block's biases come
-//   with the first K tile.
+//   input element is re-read once per tap from L2. The block's biases (and
+//   int8 scales) come with the first K tile.
 // - Layout: each stage tile is K-major with the 128-byte swizzle (rows of
 //   128 bytes, 16-byte chunk j of row r at j ^ (r % 8)): what TMA's
 //   SWIZZLE_128B writes, what the gather writes by hand, and what wgmma's
 //   shared-memory descriptor reads.
-// - wgmma.mma_async m64nBNk16 (bf16 -> f32), A and W from shared memory;
-//   each warpgroup of the block owns 64 rows and all BN columns.
-// - Register epilogue: bias and SiLU/ReLU on the f32 accumulators, one
-//   rounding to bf16, a bf16 staging tile in the freed ring, then 16-byte
-//   coalesced stores masked at the ragged M and N edges.
+// - wgmma.mma_async m64nBNk16 (bf16 -> f32) or m64nBNk32 (s8 -> s32), four
+//   a stage, A and W from shared memory; each warpgroup of the block owns
+//   64 rows and all BN columns. The s32 accumulators have the f32 ones'
+//   fragment layout.
+// - Register epilogue: bias (int8: float(acc) * scale + bias, multiply and
+//   add each rounded on its own, as the plain version computes them) and
+//   SiLU/ReLU in f32, one rounding to bf16, a bf16 staging tile in the
+//   freed ring, then 16-byte coalesced stores masked at the ragged M and N
+//   edges.
 // - Tiles: chosen per launch by choose_tile (see there).
-// - Where K or Cin is not a multiple of 8 (or a pointer is not 16-byte
-//   aligned), neither TMA nor 16-byte copies apply: the same ring is
-//   filled with element loads and shared stores.
+// - Where K or Cin is not a multiple of the values in 16 bytes (8 bf16, 16
+//   int8), or a pointer is not 16-byte aligned, neither TMA nor 16-byte
+//   copies apply: the same ring is filled with element loads and shared
+//   stores.
 // - Indexing: the pixel row m, M, N, K and the TMA coordinates are 32-bit;
 //   element offsets into x and y are 64-bit, so the conv's input and
 //   output may hold 2^31 elements or more (TrackNet's full-resolution
@@ -60,13 +70,13 @@
 
 namespace igemm {
 
-constexpr int BK = 64;  // K per stage: one 128-byte swizzle row of bf16
-constexpr int ROW_BYTES = BK * 2;
+constexpr int ROW_BYTES = 128;  // a stage row: one 128-byte swizzle row of K
 constexpr int SMEM_BUDGET = 100 * 1024;  // ring bytes a block may take: two blocks per SM
 
 // The ring of a BM x BN tile: as many stages as fit the budget (3..MAX).
 // LOOKAHEAD tiles are copied ahead; one more stage is still read by wgmma.
-// Past the ring: one mbarrier per stage, then the block's BN biases.
+// Past the ring: one mbarrier per stage, then the block's BN biases and
+// (int8) BN scales.
 template <int BM, int BN, int MAX>
 struct Ring {
   static constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
@@ -75,15 +85,16 @@ struct Ring {
   static constexpr int LOOKAHEAD = STAGES - 2;
   static constexpr int BARS = STAGES * STAGE_BYTES;
   static constexpr int BIAS = BARS + 8 * STAGES;
-  static constexpr int SMEM = BIAS + 4 * BN + 1024;  // + slack to align the ring to 1024
+  static constexpr int SCALE = BIAS + 4 * BN;
+  static constexpr int SMEM = SCALE + 4 * BN + 1024;  // + slack to align the ring to 1024
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk j (8 values of K) of row r in a K-major tile
-// with the 128-byte swizzle.
+// Byte offset of 16-byte chunk j of row r in a K-major tile with the
+// 128-byte swizzle.
 __device__ __forceinline__ uint32_t swizzle128(int r, int j) {
   return r * ROW_BYTES + ((j ^ (r & 7)) << 4);
 }
@@ -187,23 +198,69 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// What a 16-byte chunk of each operand type holds and how wgmma takes it.
+template <typename T>
+struct Operand;
+
+template <>
+struct Operand<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int VALS = 8;  // values in 16 bytes
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  using Bits = unsigned short;
+  __device__ __forceinline__ static __nv_bfloat16 zero() { return __float2bfloat16(0.0f); }
+  __device__ __forceinline__ static Bits bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+};
+
+template <>
+struct Operand<int8_t> {
+  using Acc = int;
+  static constexpr int VALS = 16;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  using Bits = unsigned char;
+  __device__ __forceinline__ static int8_t zero() { return 0; }
+  __device__ __forceinline__ static Bits bits(int8_t v) { return (unsigned char)v; }
+};
+
+// The f32 value the epilogue activates: the bf16 path's accumulator plus
+// the bias; the int8 path's exact sum times the scale, plus the bias, each
+// rounded on its own (no fused multiply-add), as the plain version does.
+__device__ __forceinline__ float dequant(float acc, float, float b) { return acc + b; }
+__device__ __forceinline__ float dequant(int acc, float s, float b) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
+}
+
 #define IGEMM_F8(i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define IGEMM_I8(i)                                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),         \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define IGEMM_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define IGEMM_R32 IGEMM_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define IGEMM_R64 IGEMM_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
 
-// d (64 x N f32, N / 2 registers a thread) += A (64 x 16) * B (16 x N),
-// both K-major in shared memory.
-template <int N>
+// d (64 x N, N / 2 registers a thread) += A (64 x 32 bytes of K) *
+// B (32 bytes of K x N), both K-major in shared memory: k16 for bf16 into
+// f32, k32 for s8 into s32.
+template <typename T, int N>
 struct Wgmma;
 
 template <>
-struct Wgmma<32> {
+struct Wgmma<__nv_bfloat16, 32> {
   __device__ __forceinline__ static void mma(float* d, uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" IGEMM_R16
         "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
         : IGEMM_F8(0), IGEMM_F8(8)
         : "l"(a), "l"(b), "r"(1));
@@ -211,15 +268,11 @@ struct Wgmma<32> {
 };
 
 template <>
-struct Wgmma<64> {
+struct Wgmma<__nv_bfloat16, 64> {
   __device__ __forceinline__ static void mma(float* d, uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" IGEMM_R32
         "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
         : IGEMM_F8(0), IGEMM_F8(8), IGEMM_F8(16), IGEMM_F8(24)
         : "l"(a), "l"(b), "r"(1));
@@ -227,19 +280,11 @@ struct Wgmma<64> {
 };
 
 template <>
-struct Wgmma<128> {
+struct Wgmma<__nv_bfloat16, 128> {
   __device__ __forceinline__ static void mma(float* d, uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" IGEMM_R64
         "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
         : IGEMM_F8(0), IGEMM_F8(8), IGEMM_F8(16), IGEMM_F8(24),
           IGEMM_F8(32), IGEMM_F8(40), IGEMM_F8(48), IGEMM_F8(56)
@@ -247,33 +292,83 @@ struct Wgmma<128> {
   }
 };
 
-#undef IGEMM_F8
+template <>
+struct Wgmma<int8_t, 32> {
+  __device__ __forceinline__ static void mma(int* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" IGEMM_R16
+        "}, %16, %17, p;\n}\n"
+        : IGEMM_I8(0), IGEMM_I8(8)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 
-// One launch's operands.
+template <>
+struct Wgmma<int8_t, 64> {
+  __device__ __forceinline__ static void mma(int* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" IGEMM_R32
+        "}, %32, %33, p;\n}\n"
+        : IGEMM_I8(0), IGEMM_I8(8), IGEMM_I8(16), IGEMM_I8(24)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<int8_t, 128> {
+  __device__ __forceinline__ static void mma(int* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" IGEMM_R64
+        "}, %64, %65, p;\n}\n"
+        : IGEMM_I8(0), IGEMM_I8(8), IGEMM_I8(16), IGEMM_I8(24),
+          IGEMM_I8(32), IGEMM_I8(40), IGEMM_I8(48), IGEMM_I8(56)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+#undef IGEMM_F8
+#undef IGEMM_I8
+#undef IGEMM_R16
+#undef IGEMM_R32
+#undef IGEMM_R64
+
+// One launch's operands, T the operand type (bf16 or int8).
 // x: TAPS 9, the NHWC input (B, H, W, C) with M = B*H*W and K = 9*C;
 //    TAPS 1, the (M, K) matrix, with H = W = 1 and C = K.
-// w (N, K) row-major, bias f32 (N,), y (M, N). act: 0 none, 1 silu, 2 relu.
-// vec: K and C multiples of 8 and x, w 16-byte aligned, so W (and the
-//      matmul's A) come by TMA and the conv's A by 16-byte copies.
+// w (N, K) row-major, bias f32 (N,), scale f32 (N,) (int8 only: the
+// dequantizing factor of each output channel), y bf16 (M, N).
+// act: 0 none, 1 silu, 2 relu.
+// vec: K and C multiples of the values in 16 bytes and x, w 16-byte
+//      aligned, so W (and the matmul's A) come by TMA and the conv's A by
+//      16-byte copies.
 // vec_out: N a multiple of 8 and y 16-byte aligned (16-byte stores).
+template <typename T>
 struct Params {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w;
+  const T* x;
+  const T* w;
   const float* bias;
+  const float* scale;
   __nv_bfloat16* y;
   int M, N, K, H, W, C, act, vec, vec_out;
 };
 
-// w_map: W in boxes of BN rows x 64 columns; x_map (TAPS 1): A in boxes of
-// BM rows x 64 columns; both with the 128-byte swizzle. Unused unless vec.
-// MAX: the most ring stages. SHALLOW (3) serves K <= 128, where one or two
-// K tiles leave a block little to overlap: three blocks then share an SM.
+// w_map: W in boxes of BN rows x 128 bytes; x_map (TAPS 1): A in boxes of
+// BM rows x 128 bytes; both with the 128-byte swizzle. Unused unless vec.
+// MAX: the most ring stages. SHALLOW (3) serves K of at most two stage
+// rows, where one or two K tiles leave a block little to overlap: three
+// blocks then share an SM.
 constexpr int DEEP = 8, SHALLOW = 3;
 
-template <int TAPS, int BM, int BN, int MAX>
+template <typename T, int TAPS, int BM, int BN, int MAX>
 __global__ void __launch_bounds__(2 * BM, MAX == SHALLOW ? 3 : 1)
-bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
+bias_act_kernel(const Params<T> p, const __grid_constant__ CUtensorMap w_map,
                 const __grid_constant__ CUtensorMap x_map) {
+  using Acc = typename Operand<T>::Acc;
+  constexpr int VALS = Operand<T>::VALS;   // values of K in a 16-byte chunk
+  constexpr int BK = 8 * VALS;             // values of K in a stage row
   constexpr int THREADS = 2 * BM;            // BM / 64 warpgroups
   constexpr int ROW_STEP = THREADS / 8;      // rows one pass of the block copies (8 chunks a row)
   constexpr int A_ROWS = BM / ROW_STEP;      // A rows each thread copies (4)
@@ -283,6 +378,7 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
   constexpr int STAGES = Ring<BM, BN, MAX>::STAGES;
   constexpr int LOOKAHEAD = Ring<BM, BN, MAX>::LOOKAHEAD;
   constexpr int TMA_BYTES = (TAPS == 1 ? A_BYTES : 0) + BN * ROW_BYTES;
+  constexpr bool INT8 = VALS == 16;
   static_assert(BM % 64 == 0 && BN % ROW_STEP == 0, "tile");
 
   extern __shared__ unsigned char smem_raw[];
@@ -291,13 +387,14 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
   const uint32_t bars = ring + Ring<BM, BN, MAX>::BARS;
   unsigned char* smem = smem_raw + (ring - raw);
   const float* bias = reinterpret_cast<const float*>(smem + Ring<BM, BN, MAX>::BIAS);
+  const float* scale = reinterpret_cast<const float*>(smem + Ring<BM, BN, MAX>::SCALE);
 
-  const __nv_bfloat16* __restrict__ x = p.x;
-  const __nv_bfloat16* __restrict__ w = p.w;
+  const T* __restrict__ x = p.x;
+  const T* __restrict__ w = p.w;
   const int M = p.M, N = p.N, K = p.K, H = p.H, W = p.W, C = p.C;
   const int tid = threadIdx.x, j = tid & 7, r0 = tid >> 3, wg = tid >> 7;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  const T zero = Operand<T>::zero();
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
@@ -308,10 +405,12 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
         asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&x_map)) : "memory");
     }
   }
-  // The biases ride with K tile 0's copies, off the epilogue's path.
+  // The biases (and scales) ride with K tile 0's copies, off the
+  // epilogue's path.
   if (tid < BN) {
     const bool ok = n0 + tid < N;
     cp_async4(smem_addr(bias + tid), p.bias + (ok ? n0 + tid : 0), ok);
+    if constexpr (INT8) cp_async4(smem_addr(scale + tid), p.scale + (ok ? n0 + tid : 0), ok);
   }
   __syncthreads();
 
@@ -327,7 +426,7 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
   }
 
   // Element (row i, k) of A, zero outside the image and past K.
-  auto a_elem = [&](int i, int k) -> __nv_bfloat16 {
+  auto a_elem = [&](int i, int k) -> T {
     if (k >= K) return zero;
     int dy = 0, dx = 0, c = k;
     if constexpr (TAPS == 9) {
@@ -343,14 +442,14 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
   // Copy K tile kt of A and W into ring stage `stage`.
   auto load_tile = [&](int kt, int stage) {
     const uint32_t sa = ring + stage * STAGE_BYTES, sb = sa + A_BYTES;
-    const int k = kt * BK + 8 * j;
+    const int k = kt * BK + VALS * j;
     if (p.vec) {
       if (tid == 0) {
         mbar_expect_tx(bars + 8 * stage, TMA_BYTES);
         tma_load_2d(sb, &w_map, kt * BK, n0, bars + 8 * stage);
         if constexpr (TAPS == 1) tma_load_2d(sa, &x_map, kt * BK, m0, bars + 8 * stage);
       }
-      if constexpr (TAPS == 9) {  // C % 8 == 0: the 8 values of a chunk share one tap
+      if constexpr (TAPS == 9) {  // C % VALS == 0: the values of a chunk share one tap
         const int tap = k / C, c = k - tap * C;
         const int dy = tap / 3 - 1, dx = tap % 3 - 1;
         const int shift = (dy * W + dx) * C + c;
@@ -363,27 +462,27 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
         }
       }
     } else {
-      union { uint4 u; unsigned short h[8]; } v;
+      union { uint4 u; typename Operand<T>::Bits h[VALS]; } v;
 #pragma unroll
       for (int i = 0; i < A_ROWS; ++i) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v.h[e] = __bfloat16_as_ushort(a_elem(i, k + e));
+        for (int q = 0; q < VALS; ++q) v.h[q] = Operand<T>::bits(a_elem(i, k + q));
         st_shared16(sa + swizzle128(r0 + i * ROW_STEP, j), v.u);
       }
 #pragma unroll
       for (int i = 0; i < B_ROWS; ++i) {
         const int n = n0 + r0 + i * ROW_STEP;
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v.h[e] = __bfloat16_as_ushort(n < N && k + e < K ? w[(size_t)n * K + k + e] : zero);
+        for (int q = 0; q < VALS; ++q)
+          v.h[q] = Operand<T>::bits(n < N && k + q < K ? w[(size_t)n * K + k + q] : zero);
         st_shared16(sb + swizzle128(r0 + i * ROW_STEP, j), v.u);
       }
     }
   };
 
-  float acc[BN / 2];
+  Acc acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
   const int k_tiles = (K + BK - 1) / BK;
 #pragma unroll
@@ -407,8 +506,8 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
     const uint32_t sb = ring + stage * STAGE_BYTES + A_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<BN>::mma(acc, sw128_desc(sa + 32 * kk), sw128_desc(sb + 32 * kk));
+    for (int kk = 0; kk < 4; ++kk)  // 32 bytes of K each
+      Wgmma<T, BN>::mma(acc, sw128_desc(sa + 32 * kk), sw128_desc(sb + 32 * kk));
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs<BN / 2>(acc);
@@ -418,8 +517,9 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the bf16 staging tile reuses it
 
-  // Accumulator layout of m64nNk16: lane l of warp q (of its warpgroup)
-  // holds rows 16q + l/4 and that + 8, columns 8i + 2(l%4) and + 1.
+  // Accumulator layout of m64nNk16 (and of m64nNk32 for s8): lane l of
+  // warp q (of its warpgroup) holds rows 16q + l/4 and that + 8, columns
+  // 8i + 2(l%4) and + 1.
   constexpr int LDT = BN + 8;  // bf16 row stride: +16 bytes spreads the rows over the banks
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
   const int lane = tid & 31;
@@ -428,10 +528,13 @@ bias_act_kernel(const Params p, const __grid_constant__ CUtensorMap w_map,
   for (int i = 0; i < BN / 8; ++i) {
     const int col = 8 * i + 2 * (lane & 3);
     const float b0 = bias[col], b1 = bias[col + 1];
+    const float s0 = INT8 ? scale[col] : 1.0f, s1 = INT8 ? scale[col + 1] : 1.0f;
     *reinterpret_cast<__nv_bfloat162*>(tile + row * LDT + col) = __floats2bfloat162_rn(
-        activate(acc[4 * i] + b0, p.act), activate(acc[4 * i + 1] + b1, p.act));
+        activate(dequant(acc[4 * i], s0, b0), p.act),
+        activate(dequant(acc[4 * i + 1], s1, b1), p.act));
     *reinterpret_cast<__nv_bfloat162*>(tile + (row + 8) * LDT + col) = __floats2bfloat162_rn(
-        activate(acc[4 * i + 2] + b0, p.act), activate(acc[4 * i + 3] + b1, p.act));
+        activate(dequant(acc[4 * i + 2], s0, b0), p.act),
+        activate(dequant(acc[4 * i + 3], s1, b1), p.act));
   }
   __syncthreads();
   constexpr int CHUNKS = BN / 8;
@@ -454,7 +557,8 @@ struct Tile {
   int bm, bn;
 };
 
-// The output tile of an M x N x K launch on a card of `sms` SMs.
+// The output tile of an M x N x K launch on a card of `sms` SMs (K in
+// values; the int8 kernels take the bf16 choice as it is).
 // - Deep K (>= 2048, the 3x3 convs from 256 input channels): 64 x 128 when
 //   that gives at least 3/4 of a block per SM. One warpgroup on the widest
 //   wgmma here, two blocks per SM, did best at 20^2..80^2 (PERF.md).
@@ -474,16 +578,16 @@ inline Tile choose_tile(int M, int N, int K, int sms) {
 
 inline PFN_cuTensorMapEncodeTiled encode_tiled = nullptr;
 
-template <int TAPS, int BM, int BN, int MAX>
+template <typename T, int TAPS, int BM, int BN, int MAX>
 cudaError_t set_smem() {
-  return cudaFuncSetAttribute(bias_act_kernel<TAPS, BM, BN, MAX>,
+  return cudaFuncSetAttribute(bias_act_kernel<T, TAPS, BM, BN, MAX>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BM, BN, MAX>::SMEM);
 }
 
 // Once per device: find the driver's tensor-map encoder (through the
 // runtime, so the build links no driver library) and allow each tile's
 // dynamic shared memory.
-template <int TAPS>
+template <int TAPS, typename T = __nv_bfloat16>
 int init() {
   if (encode_tiled == nullptr) {
     void* fn = nullptr;
@@ -494,73 +598,80 @@ int init() {
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
     encode_tiled = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
-  const cudaError_t deep[] = {set_smem<TAPS, 64, 128, DEEP>(), set_smem<TAPS, 128, 64, DEEP>(),
-                              set_smem<TAPS, 64, 64, DEEP>(), set_smem<TAPS, 128, 32, DEEP>(),
-                              set_smem<TAPS, 64, 32, DEEP>()};
+  const cudaError_t deep[] = {
+      set_smem<T, TAPS, 64, 128, DEEP>(), set_smem<T, TAPS, 128, 64, DEEP>(),
+      set_smem<T, TAPS, 64, 64, DEEP>(), set_smem<T, TAPS, 128, 32, DEEP>(),
+      set_smem<T, TAPS, 64, 32, DEEP>()};
   for (cudaError_t e : deep)
     if (e != cudaSuccess) return (int)e;
   if constexpr (TAPS == 1) {
-    const cudaError_t shallow[] = {set_smem<1, 128, 64, SHALLOW>(), set_smem<1, 64, 64, SHALLOW>(),
-                                   set_smem<1, 128, 32, SHALLOW>(), set_smem<1, 64, 32, SHALLOW>()};
+    const cudaError_t shallow[] = {
+        set_smem<T, 1, 128, 64, SHALLOW>(), set_smem<T, 1, 64, 64, SHALLOW>(),
+        set_smem<T, 1, 128, 32, SHALLOW>(), set_smem<T, 1, 64, 32, SHALLOW>()};
     for (cudaError_t e : shallow)
       if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-// The (rows, cols) bf16 row-major matrix at ptr in boxes of box_rows x 64
-// columns with the 128-byte swizzle; zero fill outside.
+// The (rows, cols) row-major matrix of T at ptr in boxes of box_rows x
+// 128 bytes with the 128-byte swizzle; zero fill outside.
+template <typename T>
 inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(ROW_BYTES / sizeof(T)), (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  return encode_tiled(map, Operand<T>::TMA_TYPE, 2, const_cast<void*>(ptr), dims,
                       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int TAPS, int BM, int BN, int MAX>
-int launch_tile(const Params& p, cudaStream_t stream) {
+template <typename T, int TAPS, int BM, int BN, int MAX>
+int launch_tile(const Params<T>& p, cudaStream_t stream) {
   CUtensorMap w_map{}, x_map{};
-  if (p.vec && (!encode(&w_map, p.w, p.N, p.K, BN) ||
-                (TAPS == 1 && !encode(&x_map, p.x, p.M, p.K, BM))))
+  if (p.vec && (!encode<T>(&w_map, p.w, p.N, p.K, BN) ||
+                (TAPS == 1 && !encode<T>(&x_map, p.x, p.M, p.K, BM))))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-  bias_act_kernel<TAPS, BM, BN, MAX><<<grid, 2 * BM, Ring<BM, BN, MAX>::SMEM, stream>>>(
+  bias_act_kernel<T, TAPS, BM, BN, MAX><<<grid, 2 * BM, Ring<BM, BN, MAX>::SMEM, stream>>>(
       p, w_map, x_map);
   return (int)cudaGetLastError();
 }
 
-// The shallow ring serves the matmul's K <= 128 launches (64 x 128 tiles
-// come only with K >= 2048); every 3x3 conv on the serve path has K >= 288.
-template <int TAPS, int BM, int BN>
-int launch_ring(const Params& p, cudaStream_t stream) {
+// The shallow ring serves the matmul's launches with at most two stage
+// rows of K (64 x 128 tiles come only with K >= 2048); every 3x3 conv on
+// the serve path has K >= 288.
+template <typename T, int TAPS, int BM, int BN>
+int launch_ring(const Params<T>& p, cudaStream_t stream) {
+  constexpr int BK = 8 * Operand<T>::VALS;
   if constexpr (TAPS == 1 && !(BM == 64 && BN == 128))
-    if (p.K <= 2 * BK) return launch_tile<TAPS, BM, BN, SHALLOW>(p, stream);
-  return launch_tile<TAPS, BM, BN, DEEP>(p, stream);
+    if (p.K <= 2 * BK) return launch_tile<T, TAPS, BM, BN, SHALLOW>(p, stream);
+  return launch_tile<T, TAPS, BM, BN, DEEP>(p, stream);
 }
 
 inline bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 // Launch on `stream` (of the current device); returns a CUDA error code:
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue if a
-// tensor map could not be made.
-template <int TAPS>
+// tensor map could not be made. `scale` is read by the int8 kernels only.
+template <int TAPS, typename T = __nv_bfloat16>
 int launch(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, int H,
-           int W, int C, int act, int sms, void* stream) {
-  const Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-                 static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), M, N, K, H, W, C,
-                 act, K % 8 == 0 && C % 8 == 0 && aligned16(x) && aligned16(w),
-                 N % 8 == 0 && aligned16(y)};
+           int W, int C, int act, int sms, void* stream, const void* scale = nullptr) {
+  constexpr int VALS = Operand<T>::VALS;
+  const Params<T> p{static_cast<const T*>(x), static_cast<const T*>(w),
+                    static_cast<const float*>(bias), static_cast<const float*>(scale),
+                    static_cast<__nv_bfloat16*>(y), M, N, K, H, W, C, act,
+                    K % VALS == 0 && C % VALS == 0 && aligned16(x) && aligned16(w),
+                    N % 8 == 0 && aligned16(y)};
   const auto s = static_cast<cudaStream_t>(stream);
   const Tile t = choose_tile(M, N, K, sms);
-  if (t.bm == 64 && t.bn == 128) return launch_ring<TAPS, 64, 128>(p, s);
-  if (t.bm == 128 && t.bn == 64) return launch_ring<TAPS, 128, 64>(p, s);
-  if (t.bm == 64 && t.bn == 64) return launch_ring<TAPS, 64, 64>(p, s);
-  if (t.bm == 128) return launch_ring<TAPS, 128, 32>(p, s);
-  return launch_ring<TAPS, 64, 32>(p, s);
+  if (t.bm == 64 && t.bn == 128) return launch_ring<T, TAPS, 64, 128>(p, s);
+  if (t.bm == 128 && t.bn == 64) return launch_ring<T, TAPS, 128, 64>(p, s);
+  if (t.bm == 64 && t.bn == 64) return launch_ring<T, TAPS, 64, 64>(p, s);
+  if (t.bm == 128) return launch_ring<T, TAPS, 128, 32>(p, s);
+  return launch_ring<T, TAPS, 64, 32>(p, s);
 }
 
 }  // namespace igemm

@@ -9,7 +9,8 @@ It serves the checkpoint in the deploy form over a YOLO-format directory
 (`tools.eval_harness.evaluate_checkpoint_map`) and prints the JAX CLI's one
 JSON line, with the same keys and rounding:
 {"map50": ..., "iou_threshold": ..., "ap_per_class": [...], ...}.
-`--quantize int8` is not in the port yet and raises.
+`--quantize int8` scores the int8 serving form, calibrated on the first
+batch of the directory.
 """
 import argparse
 import json
@@ -78,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_reparam", action="store_true",
                         help="Evaluate the train-form (multi-branch) network")
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8"], metavar="",
-                        help="Evaluate the int8 serving form (not in the port yet)")
+                        help="Evaluate the int8 serving form (calibrated on the first batch)")
     parser.add_argument("--device", type=str, default="cuda", metavar="",
                         help="device to evaluate on (cuda or cpu)")
     return parser

@@ -9,7 +9,8 @@ It serves the checkpoint in the deploy form over a polygon-label directory
 (`tools.eval_harness.evaluate_checkpoint_seg`) and prints the JAX CLI's one
 JSON line, with the same keys and rounding: mask mAP at --iou, dataset
 dice, matched dice, mask recall and box mAP from the same run.
-`--quantize int8` is not in the port yet and raises.
+`--quantize int8` scores the int8 serving form, calibrated on the first
+batch of the directory.
 """
 import argparse
 import json
@@ -85,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_reparam", action="store_true",
                         help="Evaluate the train-form (multi-branch) network")
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8"], metavar="",
-                        help="Evaluate the int8 serving form (not in the port yet)")
+                        help="Evaluate the int8 serving form (calibrated on the first batch)")
     parser.add_argument("--crop_masks", action="store_true",
                         help="Crop assembled masks to their predicted boxes before scoring")
     parser.add_argument("--device", type=str, default="cuda", metavar="",

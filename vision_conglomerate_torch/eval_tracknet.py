@@ -16,8 +16,11 @@ and rounding.
 
 Forms: by default the train form (parameters and running BatchNorm
 statistics, bf16 on the card); --deploy the serve form (BatchNorm folded,
-every conv on the conv3x3 kernel on the card), what inference_tracknet
-runs. `--quantize int8` is not in the port yet and raises (ROADMAP §A.10).
+every stride-1 conv on the kernels on the card), what inference_tracknet
+runs; `--quantize int8` (implies --deploy) the int8 serve form, calibrated
+on the first eval batch as the JAX package does, whose int8 convs run on
+the s8 kernels on the card. The JSON's "form" is "train", "deploy" or
+"int8".
 """
 import argparse
 import json
@@ -33,6 +36,7 @@ def run(args) -> dict:
 
     from .data.loader import DataLoader
     from .device import resolve_device
+    from .infer.runner import quantize_model_int8
     from .infer.tracknet_runner import load_tracknet_model
     from .models import TrackNet
     from .train.optim import make_optimizer
@@ -42,8 +46,8 @@ def run(args) -> dict:
 
     if args.quantize not in ("none", "int8"):
         raise ValueError(f"unknown quantize mode: {args.quantize!r}")
-    if args.quantize == "int8":
-        raise NotImplementedError("int8 serving is not in the port yet (ROADMAP §A.10)")
+    int8 = args.quantize == "int8"
+    deploy = args.deploy or int8
     dev = resolve_device(args.device)
     config_path = args.config_path or os.path.join(
         Path(args.weights_path).parent.resolve(), "config", "config.yaml")
@@ -63,9 +67,14 @@ def run(args) -> dict:
         tp_dist_tol=float(tc.get("tp_dist_tol", args.tp_dist_tol)),
         heatmap_threshold=int(tc.get("heatmap_threshold", 128)),
         decode=args.decode, hough_grad_config=tc.get("hough_grad_config"))
-    deploy = (load_tracknet_model(args.weights_path, cfg["model_config"], num_stacks,
-                                  device=dev) if args.deploy else None)
-    metrics = pipe.evaluate(eval_dl, verbose=args.verbose, model=deploy)
+    serve_net = None
+    if deploy:
+        serve_net = load_tracknet_model(args.weights_path, cfg["model_config"], num_stacks,
+                                        device=dev, quantize=args.quantize)
+    if int8:  # PTQ on the first eval batch
+        frames = torch.from_numpy(next(iter(eval_dl))[0]).to(dev)
+        quantize_model_int8(serve_net, pipe._inputs(frames))
+    metrics = pipe.evaluate(eval_dl, verbose=args.verbose, model=serve_net)
     out = {
         "f1": round(float(metrics["f1"]), 5),
         "precision": round(float(metrics["precision"]), 5),
@@ -75,7 +84,7 @@ def run(args) -> dict:
         "eval_loss": round(float(metrics["loss"]), 6),
         "num_windows": len(eval_ds),
         "decode": args.decode,
-        "form": "deploy" if args.deploy else "train",
+        "form": "int8" if int8 else "deploy" if deploy else "train",
         "weights": args.weights_path,
     }
     print(json.dumps(out))
@@ -99,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="score the serve form (BN folded)")
     parser.add_argument("--quantize", type=str, default="none",
                         choices=["none", "int8"], metavar="",
-                        help="int8 PTQ on the first eval batch (not in the port yet)")
+                        help="int8 PTQ on the first eval batch (implies --deploy)")
     parser.add_argument("--tp_dist_tol", type=float, default=4.0, metavar="",
                         help="tp tolerance in px (config tp_dist_tol wins)")
     parser.add_argument("--verbose", action="store_true")

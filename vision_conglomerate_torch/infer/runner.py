@@ -23,8 +23,15 @@ compute one after another instead, as in the JAX package.
 
 On `cuda` the network runs in bf16 and its BN-folded 1x1 and stride-1 3x3
 convs run on the port's CUDA kernels; on `cpu` (only when asked for) it
-runs in f32 on the kernels' plain versions. int8 (ROADMAP §A.10) and
-keypoints (§A.13) are not in the port yet and raise.
+runs in f32 on the kernels' plain versions. Keypoints (ROADMAP §A.13) are
+not in the port yet and raise.
+
+`quantize="int8"` serves the int8 post-training-quantized deploy form, as
+the JAX package does: the first batch of the actual input calibrates each
+quantizable conv's activation scale (`quantize_model_int8`), the weights
+are quantized per output channel from the f32 folded kernels, and every
+later batch runs int8 convs (on the card the s8 kernels,
+`ops/int8.py`); it needs the deploy form.
 """
 import json
 import logging
@@ -44,6 +51,7 @@ from ..data.inference import InferenceImgDataset, InferenceVideoDataset, SingleI
 from ..device import resolve_device
 from ..models import DetectionNet, SegmentationNet
 from ..nn.blocks import cast_conv_weights
+from ..nn.quantize import collect_calibration, int8_quantize_
 from ..nn.reparam import deploy_transform
 from ..ops.postprocess import assemble_instance_masks, postprocess_detections
 from ..tools.bytetrack import ByteTrack, Detections
@@ -67,15 +75,41 @@ def load_classmap(path: str) -> Optional[List[Dict[str, Any]]]:
     return None
 
 
+def check_quantize(quantize: Optional[str], use_reparam: bool) -> bool:
+    """True for int8; raises on an unknown mode, and on int8 without the
+    deploy form, as the JAX package does."""
+    if quantize not in (None, "none", "int8"):
+        raise ValueError(f"unknown quantize mode: {quantize!r}")
+    if quantize == "int8" and not use_reparam:
+        raise ValueError("--quantize int8 requires the deploy (reparam) form; drop --no_reparam")
+    return quantize == "int8"
+
+
+@torch.no_grad()
+def quantize_model_int8(model: torch.nn.Module, calib: torch.Tensor, **forward_kwargs
+                        ) -> torch.nn.Module:
+    """PTQ on one calibration batch, the JAX package's
+    infer/runner.quantize_model_int8: `model(calib, **forward_kwargs)`
+    records the f32 absmax at each quantizable conv's input, in the served
+    compute dtype; the calibrated convs take their int8 form, quantized from
+    their f32 folded weights (a loader's `quantize="int8"` keeps them so);
+    the other convs' weights are then cast to the compute dtype."""
+    int8_quantize_(model, collect_calibration(model, [calib], **forward_kwargs))
+    return cast_conv_weights(model, model.dtype)
+
+
 def load_detection_model(weights_path: str, model_config: Dict[str, Any],
                          task: str = "detection", num_keypoints: Optional[int] = None,
-                         use_reparam: bool = True, device: Device = None
-                         ) -> Tuple[DetectionNet, int]:
+                         use_reparam: bool = True, device: Device = None,
+                         quantize: Optional[str] = None) -> Tuple[DetectionNet, int]:
     """Rebuild the net (a SegmentationNet for task="segmentation") from a
     checkpoint manifest (either package's pickled format) and its config,
     in the deploy form unless `use_reparam=False`, with conv weights in bf16
-    on cuda (what the kernels take) and f32 on the CPU. Returns (model in
-    eval mode, num_classes)."""
+    on cuda (what the kernels take) and f32 on the CPU. With
+    `quantize="int8"` the conv weights stay f32 (each conv casts its weight
+    at the call) until `quantize_model_int8`. Returns (model in eval mode,
+    num_classes)."""
+    int8 = check_quantize(quantize, use_reparam)
     dev = resolve_device(device)
     manifest = load_checkpoint(weights_path)
     num_classes = int(manifest["NUM_CLASSES"])
@@ -91,7 +125,7 @@ def load_detection_model(weights_path: str, model_config: Dict[str, Any],
     model = cls(num_classes, model_config, num_keypoints=num_keypoints,
                 deploy=fuse_repvgg, folded=use_reparam, dtype=dtype, device=dev)
     model.load_state_dict(state)
-    return cast_conv_weights(model, dtype).eval(), num_classes
+    return (model if int8 else cast_conv_weights(model, dtype)).eval(), num_classes
 
 
 @torch.no_grad()
@@ -275,14 +309,12 @@ def run_detection_inference(
     included. `tracked_classes` keeps only those classes (before the
     tracker). `save_og_size=False` renders at network resolution. With
     task="segmentation" each kept box's mask is drawn under the boxes;
-    `crop_masks` zeroes each mask outside its box."""
+    `crop_masks` zeroes each mask outside its box. `quantize="int8"`
+    calibrates on the first batch and serves int8 (needs the deploy form)."""
     dev = resolve_device(device)
     if task not in ("detection", "segmentation"):
         raise ValueError(f"unknown task: {task!r} (detection|segmentation)")
-    if quantize not in (None, "none", "int8"):
-        raise ValueError(f"unknown quantize mode: {quantize!r}")
-    if quantize == "int8":
-        raise NotImplementedError("int8 serving is not in the port yet (ROADMAP §A.10)")
+    quantize_pending = check_quantize(quantize, use_reparam)
     if out_ext not in ("png", "jpg", "jpeg"):
         raise ValueError(f"unknown out_ext: {out_ext!r} (png|jpg|jpeg)")
     model_config = config["model_config"]
@@ -304,7 +336,7 @@ def run_detection_inference(
     model, num_classes = load_detection_model(
         weights_path, model_config, task=task,
         num_keypoints=model_config.get("num_keypoints") or None,
-        use_reparam=use_reparam, device=dev)
+        use_reparam=use_reparam, device=dev, quantize=quantize)
     storage = storage_path or os.path.join(
         "outputs", task, str(datetime.now()).replace(":", "_"))
     os.makedirs(storage, exist_ok=True)
@@ -322,6 +354,10 @@ def run_detection_inference(
     try:
         for imgs, dev_imgs, ogs in _prefetch_batches(_image_batches(items, batch_size), dev):
             og_hw = (ogs.shape[1], ogs.shape[2]) if save_og_size else (imgs.shape[1], imgs.shape[2])
+            if quantize_pending:  # PTQ on the first real batch, then serve int8
+                quantize_model_int8(model, torch.as_tensor(dev_imgs, device=dev).permute(
+                    0, 3, 1, 2), inference=True)
+                quantize_pending = False
             preds = detect(model, dev_imgs, og_hw)
             preds, protos = preds if model.with_proto_seg else (preds, None)
             post = postprocess_detections(

@@ -22,8 +22,11 @@ forward and copies them to the card on a side stream
 On `cuda` the net runs in bf16 and its stride-1 convs run on the kernels
 (the base architecture's 18 all on conv3x3; the advanced one's 1x1s on
 matmul, its 3x3s on conv3x3); on `cpu` (only when asked for) it runs in
-f32 on the kernels' plain versions. int8 (ROADMAP §A.10) is not in the
-port yet and raises.
+f32 on the kernels' plain versions. `quantize="int8"` calibrates the
+int8 form on the first batch of stacked frames and serves int8, as the JAX
+package does (`infer.runner.quantize_model_int8`; the deploy form only);
+`dec_13` and the advanced net's `deconv4` (no BatchNorm) and its
+transpose convs stay in bf16.
 """
 import logging
 import os
@@ -44,7 +47,8 @@ from ..ops.heatmap import decode_heatmap_peaks, hough_decode
 from ..train.checkpoint import load_checkpoint
 from ..utils.image import load_and_process_img
 from ..weights import flax_to_state_dict
-from .runner import Device, _open_video_writer, _prefetch_batches
+from .runner import (Device, _open_video_writer, _prefetch_batches, check_quantize,
+                     quantize_model_int8)
 
 logger = logging.getLogger(__name__)
 
@@ -62,13 +66,17 @@ def adv_repvgg_canonical(model_config: Dict[str, Any]) -> bool:
 
 
 def load_tracknet_model(weights_path: str, model_config: Dict[str, Any], num_stacks: int = 3,
-                        use_reparam: bool = True, device: Device = None) -> TrackNet:
+                        use_reparam: bool = True, device: Device = None,
+                        quantize: Optional[str] = None) -> TrackNet:
     """The TrackNet of a checkpoint manifest (either package's pickled
     format), in the deploy form unless `use_reparam=False`, with conv
     weights in bf16 on cuda and f32 on the CPU, in eval mode. The deploy
     form folds every BatchNorm into its conv and, for the advanced
     architecture with canonical RepVGG blocks (`adv_repvgg_canonical`),
-    fuses each block into one 3x3 conv, as the JAX package does."""
+    fuses each block into one 3x3 conv, as the JAX package does. With
+    `quantize="int8"` the conv weights stay f32 until
+    `infer.runner.quantize_model_int8`."""
+    int8 = check_quantize(quantize, use_reparam)
     dev = resolve_device(device)
     state = flax_to_state_dict(load_checkpoint(weights_path)["NETWORK_PARAMS"])
     fuse_repvgg = (use_reparam and model_config.get("architecture") == "advanced"
@@ -79,7 +87,7 @@ def load_tracknet_model(weights_path: str, model_config: Dict[str, Any], num_sta
     model = TrackNet(model_config, in_channels=3 * num_stacks, folded=use_reparam,
                      deploy=fuse_repvgg, dtype=dtype, device=dev)
     model.load_state_dict(state)
-    return cast_conv_weights(model, dtype).eval()
+    return (model if int8 else cast_conv_weights(model, dtype)).eval()
 
 
 @torch.no_grad()
@@ -156,12 +164,10 @@ def run_tracknet_inference(
     device: Device = None,
 ) -> str:
     """Track the ball through a folder of frames or a video (.avi, .mkv,
-    .mp4); returns the output directory."""
+    .mp4); returns the output directory. `quantize="int8"` calibrates on
+    the first batch and serves int8 (needs the deploy form)."""
     dev = resolve_device(device)
-    if quantize not in (None, "none", "int8"):
-        raise ValueError(f"unknown quantize mode: {quantize!r}")
-    if quantize == "int8":
-        raise NotImplementedError("int8 serving is not in the port yet (ROADMAP §A.10)")
+    quantize_pending = check_quantize(quantize, use_reparam)
     tc = config["train_config"]
     num_stacks = int(tc["img_config"].get("num_stacks", 3))
     img_wh = tuple(tc["img_config"]["img_wh"])
@@ -191,7 +197,7 @@ def run_tracknet_inference(
         raise OSError(f"{path} not found or unsupported")
 
     model = load_tracknet_model(weights_path, config["model_config"], num_stacks,
-                                use_reparam=use_reparam, device=dev)
+                                use_reparam=use_reparam, device=dev, quantize=quantize)
     storage = storage_path or os.path.join(
         "outputs", "tracknet", str(datetime.now()).replace(":", "_"))
     os.makedirs(storage, exist_ok=True)
@@ -199,6 +205,10 @@ def run_tracknet_inference(
     tracks = [np.full(3, np.nan) for _ in lead_in]
     frames = list(lead_in)
     for _, dev_frames, ogs in _prefetch_batches(_batches(dataset, batch_size), dev):
+        if quantize_pending:  # PTQ on the first stacked batch, then serve int8
+            quantize_model_int8(model, torch.as_tensor(dev_frames, device=dev).permute(0, 3, 1, 2),
+                                inference=True, og_size=ogs[0].shape[:2])
+            quantize_pending = False
         batch_tracks = track_batch(model, dev_frames, ogs[0].shape[:2], threshold, decode,
                                    tc.get("hough_grad_config"))
         tracks += list(fill_gaps(batch_tracks))

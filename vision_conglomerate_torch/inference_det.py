@@ -9,8 +9,9 @@ As in the JAX package's CLI, the config is
 saved_model/detection/best_model/config/config.yaml and the weights default
 to DetectionNet.ckpt.tar in saved_model/detection/best_model/. A video
 (.mp4/.avi/.mkv) is tracked with ByteTrack and written as video.mp4 at
-`--fps`, keeping every (frame_skips + 1)-th frame. `--quantize int8` is not
-in the port yet and raises.
+`--fps`, keeping every (frame_skips + 1)-th frame. `--quantize int8` serves
+the int8 post-training-quantized deploy form, calibrated on the first batch
+of the input (on the card its int8 convs run on the s8 kernels).
 """
 import argparse
 import logging
@@ -43,7 +44,7 @@ def build_parser(default_weights: str = BEST_MODEL_PATH) -> argparse.ArgumentPar
     parser.set_defaults(save_og_size=True)
     parser.add_argument("--no_reparam", action="store_true", help="Serve the train-form (multi-branch RepVGG) network")
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8"], metavar="",
-                        help="Post-training quantization of the deploy-form convs (not in the port yet)")
+                        help="Post-training quantization of the deploy-form convs, calibrated on the first batch")
     parser.add_argument("--out_ext", type=str, default="png", choices=["png", "jpg", "jpeg"], metavar="",
                         help="Annotated-image output format")
     return parser

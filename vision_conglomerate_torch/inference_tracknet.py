@@ -9,8 +9,8 @@ saved_model/tracknet/best_model/config/config.yaml and the weights default
 to TrackNet.ckpt.tar beside it. It writes outputs/tracknet/<datetime>/
 video.mp4 with the ball's fading trace and, with --with_summary,
 output.csv [frame, x, y, r]. `--dl_workers` is accepted and unused, as in
-the JAX CLI. `--quantize int8` is not in the port yet and raises (ROADMAP
-§A.10).
+the JAX CLI. `--quantize int8` serves the int8 post-training-quantized
+deploy form, calibrated on the first batch of stacked frames.
 """
 import argparse
 import logging
@@ -58,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_circle_thickness", type=int, default=10, metavar="", help="Max thickness of trace circles")
     parser.add_argument("--no_reparam", action="store_true", help="Serve the train-form network")
     parser.add_argument("--quantize", type=str, default="none", choices=["none", "int8"], metavar="",
-                        help="int8 PTQ serving (not in the port yet)")
+                        help="int8 PTQ serving, calibrated on the first batch")
     return parser
 
 

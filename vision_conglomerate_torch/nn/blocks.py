@@ -17,6 +17,15 @@ folded stride-1 3x3 conv and every `conv_reparam` on `ops.conv3x3`. The
 6x6/s2 stem, the 3x3/s2 downsamples, transpose convs, pooling, resizes and
 the head's plain 1x1 layers stay on PyTorch ops.
 
+int8 form. A BN-folded ConvBNorm (not a `no_batchnorm` one) or a fused
+RepVGG block that `nn.quantize.int8_quantize_` quantized holds buffers
+`q_kernel` (int8 OIHW, channels_last), `q_wscale` (Cout,), `q_xscale` () and
+`q_bias` (Cout,) in place of its conv, the JAX package's int8 parameters;
+its forward quantizes its input and runs the int8 conv
+(`int8_conv_bias_act`): 1x1/s1 on `ops.int8.matmul_s8_bias_act`, 3x3/s1 on
+`ops.int8.conv3x3_s8_bias_act`, every other conv on
+`ops.int8.conv_s8_bias_act`.
+
 Numerics follow the JAX package: parameters are f32 and each conv casts its
 weight and bias to the activations' dtype at the call, so gradients land in
 f32; BatchNorm computes in f32 with flax's running-stat rule (`BatchNorm2d`).
@@ -41,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3x3 import conv3x3_bias_act
 from ..ops.fused_matmul import ACTIVATIONS, apply_activation, pointwise_conv_act
+from ..ops.int8 import (conv3x3_s8_bias_act, conv_s8_bias_act, int8_scale, matmul_s8_bias_act,
+                        quantize_activation)
 from ..ops.resize import resize_nchw
 
 IntPair = Union[int, Tuple[int, int]]
@@ -77,28 +88,96 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
 
 
-def kernel_route(conv: nn.Conv2d, activation: Optional[str]) -> Optional[str]:
-    """Which CUDA kernel computes act(conv(x) + b): "matmul" for 1x1/s1/p0,
-    "conv3x3" for 3x3/s1/p1, None for every other conv."""
-    if activation not in ACTIVATIONS or conv.stride != (1, 1) or conv.groups != 1:
+def geometry_route(kernel_size: Tuple[int, int], stride: Tuple[int, int],
+                   padding: Tuple[int, int], activation: Optional[str]) -> Optional[str]:
+    """Which kernel computes act(conv(x) + b) of an ungrouped conv of this
+    geometry: "matmul" for 1x1/s1/p0, "conv3x3" for 3x3/s1/p1, None for
+    every other conv."""
+    if activation not in ACTIVATIONS or tuple(stride) != (1, 1):
         return None
-    if conv.kernel_size == (1, 1) and conv.padding == (0, 0):
+    if tuple(kernel_size) == (1, 1) and tuple(padding) == (0, 0):
         return "matmul"
-    if conv.kernel_size == (3, 3) and conv.padding == (1, 1):
+    if tuple(kernel_size) == (3, 3) and tuple(padding) == (1, 1):
         return "conv3x3"
     return None
+
+
+def kernel_route(conv: nn.Conv2d, activation: Optional[str]) -> Optional[str]:
+    """Which CUDA kernel computes act(conv(x) + b) (`geometry_route`)."""
+    if conv.groups != 1:
+        return None
+    return geometry_route(conv.kernel_size, conv.stride, conv.padding, activation)
 
 
 def conv_bias_act(x: torch.Tensor, conv: nn.Conv2d, activation: Optional[str]) -> torch.Tensor:
     """act(conv(x) + b) for a conv with a bias: on the matmul or conv3x3
     kernel where `kernel_route` names one, else F.conv2d then the
-    activation in x's dtype."""
+    activation in x's dtype. The weight is cast to x's dtype (a no-op in
+    the serve form, whose weights are in the compute dtype already)."""
     route = kernel_route(conv, activation)
     if route is None:
         return apply_activation(conv2d(x, conv), activation)
-    w_hwio = conv.weight.permute(2, 3, 1, 0)
+    w_hwio = conv.weight.to(x.dtype).permute(2, 3, 1, 0)
     fn = pointwise_conv_act if route == "matmul" else conv3x3_bias_act
     return fn(_nhwc(x), w_hwio, conv.bias, activation).permute(0, 3, 1, 2)
+
+
+def int8_conv_bias_act(x: torch.Tensor, module: nn.Module,
+                       activation: Optional[str]) -> torch.Tensor:
+    """The JAX package's quantized_conv on a module's int8 buffers:
+    x_q = clamp(round(x_f32 / q_xscale)), the int8 conv with exact
+    sums, then act(sum * (q_wscale * q_xscale) + q_bias) in f32, cast to
+    x's dtype. 1x1/s1 convs run on the s8 matmul kernel, 3x3/s1 ones on
+    the s8 conv kernel, the others on `conv_s8_bias_act`."""
+    stride, padding = module.q_geometry
+    w_hwio = module.q_kernel.permute(2, 3, 1, 0)
+    x_q = quantize_activation(_nhwc(x), module.q_xscale)
+    scale = int8_scale(module.q_wscale, module.q_xscale)
+    route = geometry_route(w_hwio.shape[:2], stride, padding, activation)
+    if route == "matmul":
+        b, h, w, cin = x_q.shape
+        y = matmul_s8_bias_act(x_q.reshape(b * h * w, cin), w_hwio.reshape(cin, -1), scale,
+                               module.q_bias, activation, x.dtype).reshape(b, h, w, -1)
+    elif route == "conv3x3":
+        y = conv3x3_s8_bias_act(x_q, w_hwio, scale, module.q_bias, activation, x.dtype)
+    else:
+        y = conv_s8_bias_act(x_q, w_hwio, scale, module.q_bias, stride, padding, activation,
+                             x.dtype)
+    return y.permute(0, 3, 1, 2)
+
+
+def quantized_conv_name(module: nn.Module) -> Optional[str]:
+    """The conv of `module` that the JAX package quantizes in its int8 form,
+    or None: the conv of a BN-folded ConvBNorm (not of a `no_batchnorm`
+    one, which records no calibration in the JAX package) and the
+    `conv_reparam` of a fused RepVGG block. Transpose convs and the head's
+    plain 1x1 layers stay in the module dtype."""
+    if isinstance(module, ConvBNorm) and module.folded and not module.no_batchnorm:
+        return "conv"
+    if isinstance(module, RepVGGBlock) and module.deploy:
+        return "conv_reparam"
+    return None
+
+
+def set_int8_(module: nn.Module, q_kernel: torch.Tensor, q_wscale: torch.Tensor,
+              q_xscale: torch.Tensor, q_bias: torch.Tensor) -> nn.Module:
+    """Put a quantizable module (`quantized_conv_name`) in its int8 form:
+    its conv goes, buffers q_kernel (int8 OIHW, kept channels_last),
+    q_wscale, q_xscale and q_bias (f32) take its place, and its forward
+    runs `int8_conv_bias_act` with the conv's stride and padding."""
+    name = quantized_conv_name(module)
+    conv = getattr(module, name, None) if name else None
+    if conv is None:
+        raise ValueError(f"{type(module).__name__} has no float conv to quantize")
+    if q_kernel.shape != conv.weight.shape or q_kernel.dtype != torch.int8:
+        raise ValueError(f"q_kernel {q_kernel.dtype} {tuple(q_kernel.shape)} does not replace "
+                         f"a conv weight of {tuple(conv.weight.shape)}")
+    module.q_geometry = (conv.stride, conv.padding)
+    delattr(module, name)
+    module.register_buffer("q_kernel", q_kernel.contiguous(memory_format=torch.channels_last))
+    for key, val in (("q_wscale", q_wscale), ("q_xscale", q_xscale), ("q_bias", q_bias)):
+        module.register_buffer(key, val.to(torch.float32))
+    return module
 
 
 # True while torch.utils.checkpoint re-runs a stage's forward in the
@@ -204,6 +283,8 @@ class ConvBNorm(nn.Module):
             self.norm = BatchNorm2d(out_channels, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "q_kernel"):
+            return int8_conv_bias_act(x, self, self.activation)
         if self.folded:
             return conv_bias_act(x, self.conv, self.activation)
         if self.no_batchnorm:
@@ -297,6 +378,8 @@ class RepVGGBlock(nn.Module):
             self.identity = BatchNorm2d(in_channels, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "q_kernel"):
+            return int8_conv_bias_act(x, self, self.activation)
         if self.deploy:
             return conv_bias_act(x, self.conv_reparam, self.activation)
         out = self.conv3x3(x) + self.conv1x1(x)

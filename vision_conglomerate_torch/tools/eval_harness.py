@@ -10,6 +10,10 @@ directory -> mAP@IoU, the JAX package's tools/eval_harness.py in PyTorch.
 - `evaluate_checkpoint_seg` scores a SegmentationNet checkpoint's masks
   (mask mAP, dataset dice) and boxes over a polygon-label directory.
 
+Both checkpoint harnesses take `quantize="int8"` (deploy form only): the
+first `batch_size` images of the directory, as uint8 / 255, calibrate the
+int8 form (`infer.runner.quantize_model_int8`), as in the JAX package.
+
 Per batch the uint8 images go to the device, are normalised there, and the
 forward, decode and NMS run there; only the kept (<= max_detections) boxes
 come back to the host, where `tools.map_eval` scores them. The JAX package
@@ -63,6 +67,15 @@ def _collect_and_score(forward: Forward, dataset, batch_size: int, num_classes: 
     return result
 
 
+def _calibrate_int8(model: torch.nn.Module, dataset, batch_size: int) -> None:
+    """int8 PTQ on the dataset's first `batch_size` images (uint8 / 255)."""
+    from ..infer.runner import quantize_model_int8
+
+    batch = dataset.collate_fn([dataset[i] for i in range(min(batch_size, len(dataset)))])
+    x = normalize_images(torch.from_numpy(batch[0]).to(model.sm_anchors.device))
+    quantize_model_int8(model, x.permute(0, 3, 1, 2), inference=True)
+
+
 def _make_postprocess_forward(model: torch.nn.Module, num_classes: int,
                               iou_threshold_nms: float = 0.35, score_threshold: float = 0.001,
                               max_detections: int = 300) -> Forward:
@@ -99,12 +112,9 @@ def evaluate_checkpoint_map(
     """Checkpoint + YOLO-format directory -> {"map", "ap_per_class",
     "num_gt_per_class", "num_images"}. `device` None means cuda."""
     from ..data.detection import DetectionDataset
-    from ..infer.runner import load_detection_model
+    from ..infer.runner import check_quantize, load_detection_model
 
-    if quantize not in (None, "none", "int8"):
-        raise ValueError(f"unknown quantize mode: {quantize!r}")
-    if quantize == "int8":
-        raise NotImplementedError("int8 evaluation is not in the port yet (ROADMAP §A.10)")
+    int8 = check_quantize(quantize, use_reparam)
     model_config = config["model_config"]
     tc = config["train_config"]
     img_wh = tuple(tc["img_config"]["img_wh"])
@@ -112,7 +122,9 @@ def evaluate_checkpoint_map(
                                max_labels=max_labels)
     model, num_classes = load_detection_model(
         weights_path, model_config, num_keypoints=model_config.get("num_keypoints") or None,
-        use_reparam=use_reparam, device=device)
+        use_reparam=use_reparam, device=device, quantize=quantize)
+    if int8:
+        _calibrate_int8(model, dataset, batch_size)
     forward = _make_postprocess_forward(
         model, num_classes, iou_threshold_nms=nms_iou_threshold,
         score_threshold=score_threshold, max_detections=max_detections)
@@ -151,14 +163,11 @@ def evaluate_checkpoint_seg(
     are computed."""
     from ..data.segmentation import SegmentationDataset
     from ..device import resolve_device
-    from ..infer.runner import load_detection_model
+    from ..infer.runner import check_quantize, load_detection_model
     from .map_eval import compute_map_from_iou, greedy_dice
 
     device = resolve_device(device)
-    if quantize not in (None, "none", "int8"):
-        raise ValueError(f"unknown quantize mode: {quantize!r}")
-    if quantize == "int8":
-        raise NotImplementedError("int8 evaluation is not in the port yet (ROADMAP §A.10)")
+    int8 = check_quantize(quantize, use_reparam)
     model_config = config["model_config"]
     tc = config["train_config"]
     img_wh = tuple(tc["img_config"]["img_wh"])
@@ -166,7 +175,10 @@ def evaluate_checkpoint_seg(
                                   max_labels=max_labels, overlap_masks=True,
                                   mask_store_wh=(img_wh[0] // 4, img_wh[1] // 4))
     model, num_classes = load_detection_model(weights_path, model_config, task="segmentation",
-                                              use_reparam=use_reparam, device=device)
+                                              use_reparam=use_reparam, device=device,
+                                              quantize=quantize)
+    if int8:
+        _calibrate_int8(model, dataset, batch_size)
     dev = model.sm_anchors.device
 
     @torch.no_grad()

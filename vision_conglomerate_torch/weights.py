@@ -15,6 +15,9 @@ as the port's own copy):
 - BatchNorm running_mean / running_var <-> batch_stats .../BatchNorm_0/{mean, var}
 - sequence index `name.i`             <-> `name_i`
 - top-level `{sm,md,lg}_anchors`      <-> the same top-level params
+- int8 form (`nn.quantize`): `P.q_kernel` int8 (O, I, kh, kw) <-> params
+  .../P/q_kernel int8 (kh, kw, I, O); `P.q_wscale`, `P.q_xscale` (0-d) and
+  `P.q_bias` <-> the same leaves at P, in f32
 
 `state_dict_to_flax` feeds the JAX package's loaders (and its
 `convert_torch_state_dict` gives the same tree from a port state_dict);
@@ -83,6 +86,10 @@ def state_dict_to_flax(state_dict: Dict[str, Any]) -> Dict[str, Any]:
             _set(params, base + ("bias",), leaves["bias"])
             _set(batch_stats, base + ("mean",), leaves["running_mean"])
             _set(batch_stats, base + ("var",), leaves["running_var"])
+        elif "q_kernel" in leaves:  # a conv module in its int8 form
+            for leaf, val in leaves.items():
+                _set(params, path + (leaf,),
+                     val.transpose(2, 3, 1, 0) if leaf == "q_kernel" else val)
         elif not path:  # top-level parameters (anchors)
             for leaf, val in leaves.items():
                 _set(params, (leaf,), val)
@@ -122,8 +129,8 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} of numpy (or array-like) leaves ->
-    a port state_dict of f32 CPU tensors. BatchNorm modules get a
-    `num_batches_tracked` of 0."""
+    a port state_dict of f32 CPU tensors (an int8 form's q_kernel stays
+    int8). BatchNorm modules get a `num_batches_tracked` of 0."""
     state: Dict[str, torch.Tensor] = {}
 
     def put(key: str, arr):
@@ -139,6 +146,9 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             put(f"{_torch_key(mod)}.weight", _flip_hw(np.asarray(val)).transpose(2, 3, 0, 1))
         elif leaf == "kernel":  # Conv2d
             put(f"{_torch_key(mod)}.weight", np.asarray(val).transpose(3, 2, 0, 1))
+        elif leaf == "q_kernel":  # int8 conv (HWIO -> OIHW)
+            state[_torch_key(path)] = torch.from_numpy(
+                np.array(_to_np(val), dtype=np.int8).transpose(3, 2, 0, 1).copy())
         else:
             put(_torch_key(path), val)
     for path, val in _leaves(variables.get("batch_stats", {})):
