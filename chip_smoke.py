@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection, segmentation and TrackNet (base and
-advanced) paths on one NVIDIA GPU, in bf16 and in the int8
-post-training-quantized serve form, and hold its CUDA kernels against
+"""Drive the PyTorch port's detection, keypoint detection, segmentation and
+TrackNet (base and advanced) paths on one NVIDIA GPU, in bf16 and in the
+int8 post-training-quantized serve form, and hold its CUDA kernels against
 their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
@@ -190,7 +190,7 @@ Phases (any failure exits non-zero; nothing is caught):
    Phases 9, 15, 19 and 22 also run their CLI with --quantize int8 on the
    learned net, card and CPU: |card - cpu| within the CLI's card-vs-CPU
    limit, |int8 - bf16| (card) within INT8_EVAL_GAP, the s8 conv launched.
-27. s8 kernels: as phase 3, every s8 shape of the four int8 serve paths
+27. s8 kernels: as phase 3, every s8 shape of the five int8 serve paths
    (TrackNet's at batch 32 and its 6-window tail) and ragged and
    element-path shapes (Cin or K 8 mod 16, Cin 9 and 126), on random int8
    operands against the plain version (exact f64 sums, the f32 epilogue)
@@ -198,7 +198,42 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel, the plain version and the library call (torch._int_mm on the
    1x1's matrix or the 3x3's im2col, then the epilogue in torch) beside
    the bound max(bytes / 3.35 TB/s, 2 M K N / 1979 TOP/s int8).
-The kernel phase (3) runs last, over the shapes of the four serve paths
+28. kp serve: a DetectionNet at the shipped keypoint config
+   (configs/detection/config_kp.yaml: the detector's widths, 640x640, 2
+   keypoints an object; anchors_kp.yaml; KP_CLASSES classes) with seeded
+   weights and BatchNorm state, as a JAX-format checkpoint whose config
+   carries num_keypoints, serves the 8 images through
+   `run_detection_inference` at batch 4, deploy form, bf16: both counters
+   zeroed before and risen after by the forward's launches a batch (the
+   keypoint branch's 3x3 ConvBNorms run on conv3x3; its 1x1
+   keypoints_layer, like the head's other 1x1 layers, on cuDNN), every
+   image's keypoints drawn; warm images/s as in phase 2; card vs CPU f32
+   on the first KP_CPU_IMAGES images of a batch, logits, boxes, keypoint
+   xy (pixels) and visibility logits within KP_MODEL_LIMITS; the forward's
+   ms a batch beside detection's.
+29. kp train: N_KP_TRAIN + N_KP_VALID 640x640 PNGs by the rule of
+   dev/make_shapes_dataset.py --keypoints and temp copies of config_kp.yaml
+   and anchors_kp.yaml; `train_det.run` with --map_eval as in phase 5: the
+   saved config must hold num_keypoints, eval_metrics.csv a pck column and
+   the keypoint losses. One step card vs CPU as phase 6 (shipped
+   anchors_kp.yaml, KP_TRAIN_LIMITS): kp_loss, kpv_loss and kpc_loss in
+   f32 within phase 6's relative loss limit; in bf16 the loss and those
+   terms, like the gradients, within BF16_COS_RATIO of the CPU's own bf16
+   step's distance; the learning check (the loss and kp_loss must fall),
+   its net taken on to EVAL_LEARN_STEPS steps.
+30. kp eval: phase 9 with eval_det on the keypoint checkpoints: the JAX
+   CLI's keys with pck10, pck_matched and num_visible_keypoints; map50
+   within EVAL_MAP50_LIMIT and pck10 within KP_EVAL_PCK_LIMIT card vs CPU;
+   the learned net's both above 0; and --quantize int8 (INT8_EVAL_GAP),
+   int8 PCK printed beside bf16's.
+31. kp video: the clip at frame_skips 1 with the kp checkpoint (conf and
+   class layers rescaled as in phase 4, class mean KP_CLASS_MEAN), once
+   with each class as tracked_classes: video.mp4 24 frames, both counters
+   risen, output.csv of that class only, track rows in all, and 2
+   keypoint rows drawn for each track row (the tracker's payload).
+32. int8 kp serve: phase 23 for the kp checkpoint, keypoint xy and
+   visibility logits within INT8_KP_LIMITS.
+The kernel phase (3) runs last, over the shapes of the five serve paths
 (TrackNet's, base and advanced: every shape its serve run launched, at
 batch 32, 8 and 6), and prints each kernel's sums per batch of each path
 (TrackNet's per batch of 32); then dec_13 at batch 64 (3.7e9 output
@@ -317,6 +352,42 @@ SEG_EVAL_LIMITS = {"mask_map50": 0.05, "dice": 0.05}
 SEG_EVAL_KEYS = ["mask_map50", "dice", "dice_matched", "mask_recall50", "box_map50",
                  "iou_threshold", "mask_ap_per_class", "num_gt_per_class", "num_images",
                  "weights", "data_dir", "quantize", "crop_masks"]
+
+# The keypoint phases (configs/detection/config_kp.yaml: the detector's
+# widths with 2 keypoints an object, keypoints_w 5.0, anchors_kp.yaml; the
+# shapes data of dev/make_shapes_dataset.py --keypoints has 2 classes).
+KP, KP_CLASSES = 2, 2
+KP_TERMS = ("kp_loss", "kpv_loss", "kpc_loss")
+N_KP_TRAIN, N_KP_VALID = 32, 16
+KP_CPU_IMAGES = 2  # the CPU f32 reference of the kp serve batch
+# card bf16 vs CPU f32 decoded predictions of the kp serve batch, (max,
+# mean) |card - cpu| per field group; logits and boxes as MODEL_LIMITS
+# (read 8.72e-4 and 1.95e-4, 0.107 and 3.67e-3 px), keypoint xy (pixels of
+# the 1280x720 originals) and visibility logits about 3x the first reading
+# on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 0.0278 and
+# 2.09e-3 px, 1.01e-3 and 1.43e-4
+KP_MODEL_LIMITS = {**MODEL_LIMITS, "kp_xy": (0.083, 6.3e-3), "kp_vis": (3e-3, 4.3e-4)}
+# one kp train step against the CPU f32 step: f32 as phase 6 (read: loss
+# rel 1.17e-6; kp_loss, kpv_loss, kpc_loss rel 1.50e-6, 1.13e-6, 6.59e-7).
+# In bf16 the keypoint terms move with the rounding of the head's raw
+# visibility logits: the CPU's own bf16 step reads loss rel 1.38e-2, beyond
+# phase 6's bf16 loss limit, and the card's 9.28e-3 is nearer f32 than that.
+# So the bf16 loss and its keypoint terms are held, as every net's bf16
+# gradients are, to the CPU's own bf16 step (BF16_COS_RATIO); the BatchNorm
+# statistics keep phase 6's limit.
+KP_TRAIN_LIMITS = {"f32": TRAIN_LIMITS["f32"],
+                   "bf16": {"bn_stats": TRAIN_LIMITS["bf16"]["bn_stats"]}}
+# |PCK@0.1 card bf16 - cpu f32| of eval_det on the kp checkpoints, about 3x
+# the first reading, 0.0084 on the learned net: its 16 images hold about
+# 119 visible keypoints, so one keypoint judged otherwise moves PCK by 0.0084
+KP_EVAL_PCK_LIMIT = 0.025
+# the class logits' mean after the video rescale (tracking_checkpoint): with
+# 2 classes the larger of two logits of std 2 sits near mean + 1.1, so a mean
+# of 3 puts it where the largest of 80 sits at mean 0 (near 4.6), and the
+# scores reach ByteTrack's births (0.45)
+KP_CLASS_MEAN = 3.0
+# the root eval_det.py's JSON keys for a keypoint model
+KP_EVAL_KEYS = EVAL_KEYS[:2] + ["pck10", "pck_matched", "num_visible_keypoints"] + EVAL_KEYS[2:]
 
 KERNELS = {
     "matmul": dict(name="matmul_bias_act", route="cuda",
@@ -607,7 +678,7 @@ def host_phases(preds, og_img):
 
     post()
     t0 = time.time()
-    boxes, scores, classes, valid, _ = post()
+    boxes, scores, classes, valid, _, _ = post()
     nms_ms = (time.time() - t0) * 1e3
     kept = np.concatenate([scores[0][:, None], classes[0][:, None].astype(np.float32),
                            boxes[0]], axis=-1)[valid[0]]
@@ -902,10 +973,11 @@ def write_clips(root):
     return paths, samples
 
 
-def tracking_checkpoint(root, config, net, frames, name="DetectionNet"):
+def tracking_checkpoint(root, config, net, frames, name="DetectionNet", class_mean=0.0):
     """The serve-phase net with its conf and class logits standardised on
     `frames` (per head and output channel: conf mean -3 and std 2, class
-    mean 0 and std 2; train form, f32, on the card), as a checkpoint. The
+    mean `class_mean` and std 2; train form, f32, on the card), as a
+    checkpoint. The
     random net's logits stay within +-0.3, so its scores never reach
     ByteTrack's activation threshold (0.35) and nothing would be tracked."""
     import cv2
@@ -927,13 +999,13 @@ def tracking_checkpoint(root, config, net, frames, name="DetectionNet"):
             h.remove()
         for i, head in enumerate(net.head):
             for layer, key, mean in ((head.conf_layer, "regression_fmap_layer", -3.0),
-                                     (head.cls_layer, "classification_fmap_layer", 0.0)):
+                                     (head.cls_layer, "classification_fmap_layer", class_mean)):
                 z = F.conv2d(feats[(key, i)], layer.weight, layer.bias)
                 gain = 2.0 / z.std(dim=(0, 2, 3))
                 layer.bias.copy_((layer.bias - z.mean(dim=(0, 2, 3))) * gain + mean)
                 layer.weight.mul_(gain[:, None, None, None])
     ckpt = os.path.join(root, "tracking", f"{name}.ckpt.tar")
-    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": net.num_classes,
                            "NETWORK_PARAMS": state_dict_to_flax(net.cpu().state_dict())})
     return ckpt
 
@@ -1109,10 +1181,12 @@ def run_train_cli(root, config, config_path, anchors_path, task="detection"):
 
 def check_train_artifacts(root, pipe, task="detection"):
     """What the train CLI of `task` must have written under root: finite
-    epoch losses, the metrics CSVs (detection: map50 of --map_eval; seg:
-    seg_loss, dice_score, seg_dropped_candidates), a snapshot an epoch, and
-    best_model/ with its config and f32 conv kernels."""
+    epoch losses, the metrics CSVs (detection: map50 of --map_eval, and for
+    a keypoint net pck and the keypoint losses; seg: seg_loss, dice_score,
+    seg_dropped_candidates), a snapshot an epoch, and best_model/ with its
+    config (a keypoint net's with num_keypoints) and f32 conv kernels."""
     import pandas as pd
+    import yaml
     from vision_conglomerate_torch.train.checkpoint import load_checkpoint
 
     hist = pipe._train_metrics
@@ -1127,13 +1201,22 @@ def check_train_artifacts(root, pipe, task="detection"):
         check(os.path.isfile(os.path.join(root, rel)), f"{task} train artifact missing: {rel}")
     columns = ["map50"] if task == "detection" else [
         "seg_loss", "dice_score", "seg_dropped_candidates"]
+    kp = pipe.model.num_keypoints
+    if kp:  # --map_eval's PCK, and the keypoint count in the saved config
+        columns = columns + ["pck", "kp_loss", "kpv_loss", "kpc_loss"]
+        with open(os.path.join(root, f"saved_model/{task}/best_model/config/config.yaml")) as f:
+            saved = yaml.safe_load(f)["model_config"].get("num_keypoints")
+        check(saved == kp, f"{task}: best_model/config/config.yaml has num_keypoints {saved!r}, "
+                           f"want {kp}")
     for mode in ("eval",) if task == "detection" else ("train", "eval"):
         df = pd.read_csv(os.path.join(root, f"metrics/{task}/{mode}_metrics.csv"))
         check(set(columns) <= set(df.columns) and len(df) == TRAIN_EPOCHS
               and bool(np.isfinite(df[columns].to_numpy()).all()),
               f"{task} {mode}_metrics.csv: columns {list(df.columns)}, {len(df)} rows")
     if task == "detection":
-        print(f"train: --map_eval mAP@50 per epoch {df['map50'].tolist()} (eval_metrics.csv)")
+        print(f"{'kp train' if kp else 'train'}: --map_eval mAP@50 per epoch "
+              f"{df['map50'].tolist()}" + (f", PCK@0.1 {df['pck'].tolist()}" if kp else "")
+              + " (eval_metrics.csv)")
     snaps = [f for _, _, fs in os.walk(os.path.join(root, f"saved_model/{task}/checkpoints"))
              for f in fs if f.endswith(".ckpt.tar")]
     check(len(snaps) == TRAIN_EPOCHS, f"{task} snapshots: {snaps}")
@@ -1155,15 +1238,17 @@ def check_train_artifacts(root, pipe, task="detection"):
 
 def seeded_net(config, anchors, dtype=torch.float32, device="cpu", state=None,
                task="detection"):
-    """A train-form net (a SegmentationNet for task "segmentation") with
-    Xavier init and non-trivial BatchNorm state from SEED (or the given
-    state_dict), computing in dtype on device."""
+    """A train-form net (a SegmentationNet for task "segmentation"; with
+    the config's num_keypoints, a keypoint head) with Xavier init and
+    non-trivial BatchNorm state from SEED (or the given state_dict),
+    computing in dtype on device."""
     from vision_conglomerate_torch.models import DetectionNet, SegmentationNet
     from vision_conglomerate_torch.nn.blocks import randomize_batchnorm_
     from vision_conglomerate_torch.nn.initializers import xavier_conv_init
 
     cls = SegmentationNet if task == "segmentation" else DetectionNet
-    net = cls(NUM_CLASSES, config["model_config"], anchors=anchors, dtype=dtype, device="cpu")
+    net = cls(NUM_CLASSES, config["model_config"], anchors=anchors, dtype=dtype, device="cpu",
+              num_keypoints=config["model_config"].get("num_keypoints"))
     if state is None:
         g = torch.Generator().manual_seed(SEED)
         randomize_batchnorm_(xavier_conv_init(net, g), g)
@@ -1186,8 +1271,8 @@ def trainer(net, config):
         pipe = TrainSegmentationPipeline(net, train_seg.make_loss_config(config, NUM_CLASSES),
                                          opt, init_scheme=None)
     else:
-        pipe = TrainDetectionPipeline(net, train_det.make_loss_config(config, NUM_CLASSES), opt,
-                                      init_scheme=None)
+        loss_cfg = train_det.make_loss_config(config, NUM_CLASSES, net.num_keypoints or 0)
+        pipe = TrainDetectionPipeline(net, loss_cfg, opt, init_scheme=None)
     net.train()
     return pipe
 
@@ -1211,19 +1296,23 @@ def no_grad_biases(net):
 
 
 def train_step_result(net, config, batch):
-    """(loss, gradients, BatchNorm running statistics) of one train step,
-    copied to the CPU as f32."""
+    """(loss, gradients, BatchNorm running statistics, keypoint loss terms)
+    of one train step, copied to the CPU as f32."""
     dev = net.sm_anchors.device
     pipe = trainer(net, config)
-    loss = pipe.train_step(*[torch.from_numpy(a).to(dev) for a in batch])["aggregate_loss"].item()
+    metrics = pipe.train_step(*[torch.from_numpy(a).to(dev) for a in batch])
     grads = {n: p.grad.float().cpu() for n, p in net.named_parameters() if p.requires_grad}
     stats = {n: b.float().cpu() for n, b in net.named_buffers() if "running_" in n}
-    return loss, grads, stats
+    terms = {k: metrics[k].item() for k in KP_TERMS if k in metrics}
+    return metrics["aggregate_loss"].item(), grads, stats, terms
 
 
 def compare_steps(a, b, names):
-    """How far step result a is from step result b (train_step_result)."""
-    (la, ga, sa), (lb, gb, sb) = a, b
+    """How far step result a is from step result b ((loss, gradients,
+    BatchNorm statistics[, keypoint loss terms]), as train_step_result
+    gives them); the keypoint terms' relative differences as `<term>_rel`."""
+    (la, ga, sa, *ta), (lb, gb, sb, *tb) = a, b
+    ta, tb = (t[0] if t else {} for t in (ta, tb))
     cos = {n: F.cosine_similarity(ga[n].double().flatten(), gb[n].double().flatten(),
                                   dim=0).item() for n in names}
     worst = min(cos, key=cos.get)
@@ -1233,7 +1322,9 @@ def compare_steps(a, b, names):
                 one_minus_min_cos=1.0 - cos[worst], worst_grad=worst,
                 one_minus_median_cos=1.0 - float(np.median(list(cos.values()))),
                 one_minus_global_cos=1.0 - F.cosine_similarity(flat_a, flat_b, dim=0).item(),
-                bn_stats=max((sa[n] - sb[n]).abs().max().item() for n in sb))
+                bn_stats=max((sa[n] - sb[n]).abs().max().item() for n in sb),
+                **{f"{k}_rel": abs(ta[k] - tb[k]) / abs(tb[k]) for k in tb},
+                **{k: ta[k] for k in ta}, **{f"{k}_ref": tb[k] for k in tb})
 
 
 def reference_batchnorm(config, anchors, batch):
@@ -1273,9 +1364,12 @@ def card_vs_cpu_step(config, anchors, task="detection", limits=None):
     CPU's own bf16 step is measured beside them: how far bf16 alone moves
     the step. The anchors get no gradient, and the conv biases in front of
     a train-mode BatchNorm only rounding noise: both are left out of the
-    cosines."""
+    cosines. A keypoint net's kp_loss, kpv_loss and kpc_loss are held as
+    its loss is: by the loss's relative limit, or, where `limits` gives the
+    bf16 step none, by their ratio to the CPU's bf16 step."""
     limits = limits or TRAIN_LIMITS
-    tag_ = "seg train" if task == "segmentation" else "train"
+    tag_ = ("seg train" if task == "segmentation"
+            else "kp train" if config["model_config"].get("num_keypoints") else "train")
     cpu = seeded_net(config, anchors, task=task)
     state = {k: v.clone() for k, v in cpu.state_dict().items()}
     batch = train_batch(config, 2, task)
@@ -1300,15 +1394,30 @@ def card_vs_cpu_step(config, anchors, task="detection", limits=None):
     print(f"{tag_}: {len(names)} parameters compared; {len(skip)} conv biases before BatchNorm "
           f"and the anchors left out; the cpu f32 reference loss {ref[0]!r} (the seeded net on "
           f"the shipped anchors)")
-    for key in ("one_minus_global_cos", "one_minus_median_cos"):
+    # what `limits` leaves unbounded of the bf16 step's distance from f32
+    # (its gradients; a kp net's loss and keypoint terms) is held to the
+    # CPU's own bf16 step
+    ratio_keys = ["one_minus_global_cos", "one_minus_median_cos"] + [
+        k for k in ["loss_rel"] + [f"{t}_rel" for t in KP_TERMS]
+        if k in out["bf16"] and k not in limits["bf16"]]
+    for key in ratio_keys:
         ratio = out["bf16"][key] / out["cpu_bf16"][key]
         out["bf16"][key + "_ratio"] = ratio
         print(f"{tag_}: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} "
               f"(limit {BF16_COS_RATIO:g})")
         check(bool(np.isfinite(ratio)) and ratio <= BF16_COS_RATIO,
-              f"{tag_}: card bf16 gradients are {ratio:.3f}x farther from f32 than the CPU's "
+              f"{tag_}: the card's bf16 step is {ratio:.3f}x farther from f32 than the CPU's "
               f"bf16 ({key})")
     for tag, lims in limits.items():
+        for term in KP_TERMS:
+            if f"{term}_rel" in out[tag]:
+                v = out[tag][f"{term}_rel"]
+                held_by = (f"limit {lims['loss_rel']:g}" if "loss_rel" in lims
+                           else "held by the ratio to the cpu bf16 step")
+                print(f"{tag_}: {tag} vs cpu f32 {term} {out[tag][term]:.6f} vs "
+                      f"{out[tag][term + '_ref']:.6f}, rel {v:.3e} ({held_by})")
+                check(bool(np.isfinite(v)) and v <= lims.get("loss_rel", np.inf),
+                      f"card {tag} {tag_} step differs from the CPU: {term} rel {v:.3e}")
         for key, lim in lims.items():
             v = out[tag][key]
             check(bool(np.isfinite(v)) and v <= lim,
@@ -1318,26 +1427,32 @@ def card_vs_cpu_step(config, anchors, task="detection", limits=None):
 
 def learning_check(config, anchors, task="detection", steps=LEARN_STEPS):
     """`steps` steps of a seeded net on one fixed batch of TRAIN_BATCH on
-    the card; the loss must fall. Returns the losses, the synchronized
-    step time of steps 6 to the last and (pipeline, batch)."""
+    the card; the loss (and a keypoint net's kp_loss) must fall. Returns the
+    losses, the synchronized step time of steps 6 to the last and
+    (pipeline, batch)."""
     pipe = trainer(seeded_net(config, anchors, torch.bfloat16, "cuda", task=task), config)
     batch = [torch.from_numpy(a).cuda() for a in train_batch(config, TRAIN_BATCH, task)]
+    keys = ["aggregate_loss"] + (["kp_loss"] if pipe.model.num_keypoints else [])
     losses = []
     for i in range(steps):
         if i == 5:
             torch.cuda.synchronize()
             t0 = time.time()
-        losses.append(pipe.train_step(*batch)["aggregate_loss"].detach())
+        metrics = pipe.train_step(*batch)
+        losses.append(torch.stack([metrics[k].detach() for k in keys]))
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) / (steps - 5) * 1e3
-    losses = torch.stack(losses).tolist()
-    tag = "seg train" if task == "segmentation" else "train"
-    print(f"{tag}: {steps} steps on one batch of {TRAIN_BATCH}: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; fixed-batch step {step_ms:.3f} ms = "
-          f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s (host clock, synchronized, steps 6-"
-          f"{steps}, no loader)")
-    check(all(np.isfinite(losses)), f"{tag}: non-finite loss while learning: {losses}")
-    check(losses[-1] < losses[0], f"{tag}: the loss did not fall in {steps} steps: {losses}")
+    by_key = dict(zip(keys, torch.stack(losses).T.tolist()))
+    losses = by_key["aggregate_loss"]
+    tag = ("seg train" if task == "segmentation"
+           else "kp train" if pipe.model.num_keypoints else "train")
+    print(f"{tag}: {steps} steps on one batch of {TRAIN_BATCH}: " + ", ".join(
+        f"{k} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in by_key.items())
+        + f"; fixed-batch step {step_ms:.3f} ms = {TRAIN_BATCH / step_ms * 1e3:.1f} images/s "
+        f"(host clock, synchronized, steps 6-{steps}, no loader)")
+    for k, v in by_key.items():
+        check(all(np.isfinite(v)), f"{tag}: non-finite {k} while learning: {v}")
+        check(v[-1] < v[0], f"{tag}: {k} did not fall in {steps} steps: {v}")
     return losses, step_ms, (pipe, batch)
 
 
@@ -1406,21 +1521,23 @@ def save_learned(root, config, net):
 
     ckpt = os.path.join(root, "learned", f"{type(net).__name__}.ckpt.tar")
     state = {k: v.float().cpu() for k, v in net.state_dict().items()}
-    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": net.num_classes,
                            "NETWORK_PARAMS": state_dict_to_flax(state)})
     os.makedirs(os.path.join(root, "learned", "config"))
     save_yaml(config, os.path.join(root, "learned", "config", "config.yaml"))
     src, dst = os.path.join(root, "data", "train"), os.path.join(root, "data", "learned")
     os.makedirs(dst)
-    for name in sorted(f for f in os.listdir(src) if f.endswith(".jpg"))[:TRAIN_BATCH]:
-        for ext in (".jpg", ".txt"):
-            stem = name[:-4] + ext
+    img_ext = "." + config["train_config"]["img_config"]["img_ext"]
+    for name in sorted(f for f in os.listdir(src) if f.endswith(img_ext))[:TRAIN_BATCH]:
+        for ext in (img_ext, ".txt"):
+            stem = os.path.splitext(name)[0] + ext
             os.link(os.path.join(src, stem), os.path.join(dst, stem))
     return ckpt, dst
 
 
 def eval_phase(root, learned, task="detection"):
-    """The eval CLI of `task` (eval_det, eval_seg) on best_model/ over the
+    """The eval CLI of `task` (eval_det for "detection" and "keypoints",
+    eval_seg) on best_model/ over the
     valid images and on a learning phase's net over the images it learned
     (`learned`: checkpoint, data dir), each on the card (counters zeroed
     before and read after) and on the CPU: the JAX CLI's keys, its metrics
@@ -1430,11 +1547,15 @@ def eval_phase(root, learned, task="detection"):
 
     from vision_conglomerate_torch import eval_det, eval_seg
 
-    cli, keys, limits = ((eval_seg, SEG_EVAL_KEYS, SEG_EVAL_LIMITS) if task == "segmentation"
-                         else (eval_det, EVAL_KEYS, {"map50": EVAL_MAP50_LIMIT}))
+    cli, keys, limits = {
+        "segmentation": (eval_seg, SEG_EVAL_KEYS, SEG_EVAL_LIMITS),
+        "detection": (eval_det, EVAL_KEYS, {"map50": EVAL_MAP50_LIMIT}),
+        "keypoints": (eval_det, KP_EVAL_KEYS, {"map50": EVAL_MAP50_LIMIT,
+                                               "pck10": KP_EVAL_PCK_LIMIT})}[task]
     name = cli.__name__.rsplit(".", 1)[-1]
-    model = "SegmentationNet" if task == "segmentation" else "DetectionNet"
-    runs = {"best_model": (os.path.join(root, f"saved_model/{task}/best_model/{model}.ckpt.tar"),
+    model, folder = (("SegmentationNet", task) if task == "segmentation"
+                     else ("DetectionNet", "detection"))
+    runs = {"best_model": (os.path.join(root, f"saved_model/{folder}/best_model/{model}.ckpt.tar"),
                            os.path.join(root, "data", "valid")),
             "learned": learned}
     res = {}
@@ -1537,14 +1658,14 @@ def remat_phase(config, anchors):
                 step_ms={str(k): v["step_ms"] for k, v in res.items()})
 
 
-def shipped_anchors(task):
-    """The anchors of configs/<task>/anchors.yaml. The phases after a train
-    CLI take these, not the temp copy that its auto-anchors may have
-    rewritten (a k-means and a genetic search on this machine), so every
-    machine holds the same inputs."""
+def shipped_anchors(task, suffix=""):
+    """The anchors of configs/<task>/anchors<suffix>.yaml. The phases after
+    a train CLI take these, not the temp copy that its auto-anchors may
+    have rewritten (a k-means and a genetic search on this machine), so
+    every machine holds the same inputs."""
     from vision_conglomerate_torch.utils import load_yaml
 
-    return load_yaml(os.path.join(REPO, "configs", task, "anchors.yaml"))["anchors"]
+    return load_yaml(os.path.join(REPO, "configs", task, f"anchors{suffix}.yaml"))["anchors"]
 
 
 def train_phase(root, out_dir, profile):
@@ -2288,7 +2409,13 @@ def tn_card_vs_cpu_step(config, limits):
               f"{r['bn_stats']:.3e}" + (f"; limits {limits[tag]}" if tag in limits else ""))
     print(f"{label} train: {len(names)} parameters compared, {len(skip)} conv biases before "
           f"BatchNorm left out; the cpu f32 step took {cpu_s:.2f} s")
-    for key in ("one_minus_global_cos", "one_minus_median_cos"):
+    # what `limits` leaves unbounded of the bf16 step's distance from f32
+    # (its gradients; a kp net's loss and keypoint terms) is held to the
+    # CPU's own bf16 step
+    ratio_keys = ["one_minus_global_cos", "one_minus_median_cos"] + [
+        k for k in ["loss_rel"] + [f"{t}_rel" for t in KP_TERMS]
+        if k in out["bf16"] and k not in limits["bf16"]]
+    for key in ratio_keys:
         ratio = out["bf16"][key] / out["cpu_bf16"][key]
         out["bf16"][key + "_ratio"] = ratio
         print(f"{label} train: card bf16 {key} / cpu bf16 {key} = {ratio:.3f} "
@@ -2532,8 +2659,15 @@ INT8_TN_ADV_LOGIT_LIMITS = (1.4e-3, 1.6e-4)
 # package's (tests/test_torch_int8_trained.py); the limit holds the port
 # near that reading. Seg mask mAP@50 0.0242 and dice 0.0232 (limits 3x);
 # TrackNet f1 0 and 0 (the learned clip's eval split holds 5 windows: one
-# moves f1 by up to 0.2+)
-INT8_EVAL_GAP = {"map50": 0.45, "mask_map50": 0.075, "dice": 0.07, "f1": 0.25}
+# moves f1 by up to 0.2+). Keypoints: the learned kp net's mAP@50 0.0368
+# (held by map50's limit) and PCK@0.1 0.252 (bf16 0.933, int8 0.681; the
+# CPU's int8 0.689): held near that reading.
+INT8_EVAL_GAP = {"map50": 0.45, "mask_map50": 0.075, "dice": 0.07, "f1": 0.25, "pck10": 0.35}
+# card int8 vs CPU int8 keypoint fields of the kp serve batch (the card's q
+# parameters on both sides), about 3x the first reading on an H100 (NVIDIA
+# H100 80GB HBM3, 700.00 W): xy 0.0405 and 2.89e-3 px, visibility logits
+# 1.43e-3 and 2.08e-4; logits and boxes within INT8_MODEL_LIMITS
+INT8_KP_LIMITS = {"kp_xy": (0.12, 8.7e-3), "kp_vis": (4.3e-3, 6.2e-4)}
 
 
 def int8_conv(m, shape=None):
@@ -2621,6 +2755,13 @@ def held(label, group, got, want, limits):
     return stats
 
 
+def int8_label(config, task):
+    """"int8 serve", "int8 seg serve" or "int8 kp serve"."""
+    if task == "segmentation":
+        return "int8 seg serve"
+    return "int8 kp serve" if config["model_config"].get("num_keypoints") else "int8 serve"
+
+
 def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=None):
     """One batch: the card calibrates and quantizes (bf16 activations), the
     CPU reference takes the card's q parameters; decoded predictions (and
@@ -2631,7 +2772,7 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
     from vision_conglomerate_torch.nn.quantize import collect_calibration
 
     seg = task == "segmentation"
-    label = "int8 seg serve" if seg else "int8 serve"
+    label = int8_label(config, task)
     mc = config["model_config"]
     img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
     ds = InferenceImgDataset(img_dir, img_wh=img_wh)
@@ -2639,8 +2780,9 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
     imgs = np.stack([a for a, _ in items])
     og_hw = items[0][1].shape[:2]
     x = torch.from_numpy(imgs)
-    gpu, _ = load_detection_model(ckpt, mc, task=task, device="cuda", quantize="int8")
-    cpu, _ = load_detection_model(ckpt, mc, task=task, device="cpu", quantize="int8")
+    kw = dict(task=task, num_keypoints=mc.get("num_keypoints"), quantize="int8")
+    gpu, c = load_detection_model(ckpt, mc, device="cuda", **kw)
+    cpu, _ = load_detection_model(ckpt, mc, device="cpu", **kw)
     card_absmax = quantize_on(gpu, x.cuda().permute(0, 3, 1, 2), inference=True)
     gap = calibration_gap(card_absmax, collect_calibration(cpu, [x.permute(0, 3, 1, 2)],
                                                            inference=True))
@@ -2648,7 +2790,6 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
     got, want = detect(gpu, imgs, og_hw), detect(cpu, imgs, og_hw)
     torch.cuda.synchronize()
     (got, got_p), (want, want_p) = (got, want) if seg else ((got, None), (want, None))
-    c = NUM_CLASSES
     check(tuple(got.shape) == tuple(want.shape) and bool(torch.isfinite(got).all()),
           f"{label}: predictions {tuple(got.shape)} vs {tuple(want.shape)}, or not finite")
     groups = {"logits": slice(0, 1 + c), "boxes": slice(1 + c, 5 + c)}
@@ -2656,6 +2797,9 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
         groups["coefs"] = slice(5 + c, None)
     limits = INT8_SEG_MODEL_LIMITS if seg else INT8_MODEL_LIMITS
     stats = {g: held(label, g, got[..., sl], want[..., sl], limits[g]) for g, sl in groups.items()}
+    if gpu.num_keypoints:
+        for g, got_f, want_f in zip(("kp_xy", "kp_vis"), kp_fields(got, c), kp_fields(want, c)):
+            stats[g] = held(label, g, got_f, want_f, INT8_KP_LIMITS[g])
     if seg:
         check(bool(torch.isfinite(got_p).all()), f"{label}: non-finite protos")
         stats["protos"] = held(label, "protos", got_p, want_p, INT8_PROTO_LIMITS)
@@ -2686,8 +2830,8 @@ def int8_serve_phase(root, config, ckpt, img_dirs, bf16_fwd_ms, task="detection"
     against the CPU (`int8_compare_models`). Returns the results and the
     int8 conv shapes of one batch."""
     seg = task == "segmentation"
-    label = "int8 seg serve" if seg else "int8 serve"
-    tag = "int8_seg" if seg else "int8"
+    label = int8_label(config, task)
+    tag = {"int8 serve": "int8", "int8 seg serve": "int8_seg", "int8 kp serve": "int8_kp"}[label]
     zero_counters()
     with recording_kernel_shapes() as run_seen:
         seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, f"{tag}_out"),
@@ -2845,6 +2989,277 @@ def int8_eval(run_cli, metrics, bf16_card, limits, label):
                 launches=launches, seconds=seconds)
 
 
+# --------------------------------------------------------------- keypoints
+def make_kp_checkpoint(root):
+    """A DetectionNet at the shipped keypoint config with KP keypoints and
+    KP_CLASSES classes, weights and non-trivial BatchNorm state from SEED,
+    as a JAX-format checkpoint; returns (the config with num_keypoints, as
+    the train CLI saves it, the checkpoint, the train-form net on the
+    CPU)."""
+    from vision_conglomerate_torch.models import DetectionNet
+    from vision_conglomerate_torch.nn.blocks import init_weights_, randomize_batchnorm_
+    from vision_conglomerate_torch.train.checkpoint import save_checkpoint
+    from vision_conglomerate_torch.utils import load_yaml
+    from vision_conglomerate_torch.weights import state_dict_to_flax
+
+    config = load_yaml(os.path.join(REPO, "configs", "detection", "config_kp.yaml"))
+    config["model_config"]["num_keypoints"] = KP
+    g = torch.Generator().manual_seed(SEED)
+    net = DetectionNet(KP_CLASSES, config["model_config"],
+                       anchors=shipped_anchors("detection", "_kp"), num_keypoints=KP, device="cpu")
+    randomize_batchnorm_(init_weights_(net, g), g)
+    ckpt = os.path.join(root, "kp", "DetectionNet.ckpt.tar")
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": KP_CLASSES,
+                           "NETWORK_PARAMS": state_dict_to_flax(net.state_dict())})
+    return config, ckpt, net
+
+
+def kp_fields(preds, num_classes):
+    """(keypoint xy, visibility logits) of decoded predictions whose last
+    KP * 5 columns are the keypoints."""
+    kp = preds[..., 5 + num_classes:].unflatten(-1, (KP, 5))
+    return kp[..., :2], kp[..., 2:]
+
+
+@contextlib.contextmanager
+def drawn_keypoints():
+    """The keypoint rows each call of the runner's apply_keypoints draws."""
+    from vision_conglomerate_torch.infer import runner
+
+    rows, draw = [], runner.apply_keypoints
+
+    def recording(img, keypoints):
+        rows.append(np.asarray(keypoints))
+        return draw(img, keypoints)
+
+    runner.apply_keypoints = recording
+    try:
+        yield rows
+    finally:
+        runner.apply_keypoints = draw
+
+
+def kp_compare_models(config, ckpt, img_dir):
+    """kp card (bf16, kernels) on one batch vs the CPU (f32) on its first
+    KP_CPU_IMAGES images, by field group (KP_MODEL_LIMITS); also the
+    forward's kernel shapes and its time a batch."""
+    from vision_conglomerate_torch.data.inference import InferenceImgDataset
+    from vision_conglomerate_torch.infer.runner import detect, load_detection_model
+
+    mc = config["model_config"]
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    ds = InferenceImgDataset(img_dir, img_wh=img_wh)
+    items = [ds[i] for i in range(BATCH)]
+    imgs = np.stack([a for a, _ in items])
+    og_hw = items[0][1].shape[:2]
+    gpu, c = load_detection_model(ckpt, mc, num_keypoints=KP, device="cuda")
+    cpu, _ = load_detection_model(ckpt, mc, num_keypoints=KP, device="cpu")
+    seen, handles = record_kernel_shapes(gpu)
+    got = detect(gpu, imgs, og_hw)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    want = detect(cpu, imgs[:KP_CPU_IMAGES], og_hw)
+    m = 3 * sum((img_wh[0] // s) * (img_wh[1] // s) for s in (8, 16, 32))
+    check(tuple(got.shape) == (BATCH, m, 5 + c + 5 * KP)
+          and tuple(want.shape) == (KP_CPU_IMAGES,) + tuple(got.shape[1:]),
+          f"kp pred shapes {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite kp predictions on the card")
+    got = got[:KP_CPU_IMAGES].float().cpu()
+    groups = {"logits": (got[..., :1 + c], want[..., :1 + c]),
+              "boxes": (got[..., 1 + c:5 + c], want[..., 1 + c:5 + c])}
+    for g, got_f, want_f in zip(("kp_xy", "kp_vis"), kp_fields(got, c), kp_fields(want, c)):
+        groups[g] = (got_f, want_f)
+    stats = {}
+    for group, (g, w) in groups.items():
+        diff = (g - w).abs()
+        max_lim, mean_lim = KP_MODEL_LIMITS[group]
+        stats[group] = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+                            max_ref=w.abs().max().item())
+        print(f"kp serve: card bf16 vs cpu f32 {group} on {KP_CPU_IMAGES} images: max |d| "
+              f"{stats[group]['max_abs_err']:.6g} (limit {max_lim:g}), mean |d| "
+              f"{stats[group]['mean_abs_err']:.6g} (limit {mean_lim:g}), max |ref| "
+              f"{stats[group]['max_ref']:.6g}")
+        check(stats[group]["max_abs_err"] <= max_lim and stats[group]["mean_abs_err"] <= mean_lim,
+              f"kp card predictions differ from the CPU reference in {group}")
+    x = torch.from_numpy(imgs).cuda()
+
+    def forward():
+        with torch.no_grad():
+            gpu(x.permute(0, 3, 1, 2), inference=True, og_size=og_hw)
+
+    return seen, stats, host_ms(forward)
+
+
+def kp_serve_phase(root, img_dirs, det_fwd_ms):
+    """The keypoint checkpoint served through run_detection_inference on
+    the card (counters zeroed before, read after: each kernel's launches a
+    batch times the batches, as the forward hook records them; every image
+    gets its boxes' keypoints drawn), the warm images/s, and the card
+    against the CPU."""
+    config, ckpt, net = make_kp_checkpoint(root)
+    zero_counters()
+    with drawn_keypoints() as rows:
+        seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "kp_out"))
+    launches = read_counters()
+    files = sorted(os.listdir(served))
+    check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
+          f"kp serve outputs missing: {files}")
+    check(len(rows) == N_IMAGES and all(len(r) and len(r) % KP == 0 for r in rows),
+          f"kp serve drew keypoints {[len(r) for r in rows]} on {N_IMAGES} images")
+    t_few, _ = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, "kp_few"))
+    t_many, _ = serve(config, ckpt, img_dirs[WARM_IMAGES], os.path.join(root, "kp_many"))
+    warm = (WARM_IMAGES - N_IMAGES) / (t_many - t_few)
+    seen, stats, fwd_ms = kp_compare_models(config, ckpt, img_dirs[N_IMAGES])
+    n_batches = -(-N_IMAGES // BATCH)
+    per_batch = {route: sum(1 for s_ in seen if s_[0] == route) for route in launches}
+    print(f"kp serve: {N_IMAGES} images 1280x720 at batch {BATCH} through "
+          f"run_detection_inference (config_kp, {KP} keypoints) in {seconds:.2f} s (first call); "
+          f"launches {launches}, a batch {per_batch}; keypoints drawn {sum(map(len, rows))}; "
+          f"warm {warm:.3f} images/s = {WARM_IMAGES - N_IMAGES} images / ({t_many:.3f} s - "
+          f"{t_few:.3f} s); forward + decode at batch {BATCH} {fwd_ms:.3f} ms/batch, detection's "
+          f"{det_fwd_ms:.3f} (host clock, synchronized)")
+    for route, n in launches.items():
+        check(n > 0 and n == n_batches * per_batch[route],
+              f"kp {route}: {n} launches in {n_batches} batches, the forward routes "
+              f"{per_batch[route]}")
+    return dict(first_call_seconds=seconds, launches=launches, launches_per_batch=per_batch,
+                keypoint_rows_drawn=sum(map(len, rows)), warm_images_per_s=warm,
+                warm_seconds={N_IMAGES: t_few, WARM_IMAGES: t_many}, forward_ms_per_batch=fwd_ms,
+                model_vs_cpu=stats), seen, (config, ckpt, net)
+
+
+def kp_video_phase(root, clip, samples, kp):
+    """The clip served with the keypoint checkpoint (its conf and class
+    layers rescaled on the clip as the video phase does, class mean
+    KP_CLASS_MEAN) at frame_skips 1, once for each class as
+    tracked_classes: 24 frames in video.mp4 each time, both counters
+    risen, output.csv of that class only, track rows in all, and the
+    tracked rows' keypoint payloads drawn: KP rows for each row of
+    output.csv."""
+    config, _, net = kp
+    ckpt = tracking_checkpoint(os.path.join(root, "kp"), config, net, samples,
+                               class_mean=KP_CLASS_MEAN)
+    zero_counters()
+    runs = {}
+    for cls in range(KP_CLASSES):
+        with drawn_keypoints() as rows:
+            seconds, out, df = serve_video(clip, ckpt, config,
+                                           os.path.join(root, f"kp_video{cls}"), frame_skips=1,
+                                           tracked_classes=[cls])
+        runs[cls] = dict(seconds=seconds, frames=video_frames(out),
+                         rows=0 if df is None else len(df),
+                         classes=[] if df is None else sorted(set(df["class"])),
+                         keypoint_rows=sum(map(len, rows)))
+    launches = read_counters()
+    print(f"kp video: {VIDEO_FRAMES} frames 1280x720, frame_skips 1, batch "
+          f"{VIDEO_KW['batch_size']}, tracked_classes [c]: " + "; ".join(
+              f"[{c}] {r['seconds']:.2f} s, video.mp4 {r['frames']} frames, output.csv "
+              f"{r['rows']} track rows of classes {r['classes']}, {r['keypoint_rows']} keypoint "
+              f"rows drawn" for c, r in runs.items()) + f"; launches {launches}")
+    for route, n in launches.items():
+        check(n > 0, f"the {route} kernel never launched serving the kp video")
+    for c, r in runs.items():
+        check(r["frames"] == VIDEO_FRAMES // 2,
+              f"kp video.mp4 has {r['frames']} frames, want {VIDEO_FRAMES // 2}")
+        check(r["classes"] in ([], [c]), f"kp video, tracked_classes [{c}]: {r['classes']}")
+        check(r["keypoint_rows"] == KP * r["rows"],
+              f"kp video: {r['keypoint_rows']} keypoint rows drawn for {r['rows']} track rows")
+    check(sum(r["rows"] for r in runs.values()) > 0, "kp video: no track rows")
+    return dict(runs=runs, launches=launches)
+
+
+def write_kp_train_data(root):
+    """N_KP_TRAIN train and N_KP_VALID valid 640x640 PNGs by the rule of
+    dev/make_shapes_dataset.py --keypoints (bright balls and tall boxes of
+    2 classes on a textured background, a top and a bottom keypoint an
+    object, about 10% of them vis 0 and not drawn), from SEED, plus temp
+    copies of config_kp.yaml (data_path pointing here) and anchors_kp.yaml."""
+    import yaml
+    from PIL import Image, ImageDraw
+
+    size = 640
+    for split, n, seed in (("train", N_KP_TRAIN, SEED), ("valid", N_KP_VALID, SEED + 1)):
+        rng = np.random.default_rng(seed)
+        d = os.path.join(root, "data", split)
+        os.makedirs(d)
+        for i in range(n):
+            base = rng.integers(40, 160, size=3)
+            im = Image.fromarray((rng.normal(0, 18, (size, size, 3)) + base).clip(0, 255)
+                                 .astype(np.uint8))
+            draw = ImageDraw.Draw(im)
+            rows = []
+            for _ in range(int(rng.integers(2, 7))):
+                cls = int(rng.integers(0, 2))
+                if cls == 0:  # a small bright ball
+                    r = rng.uniform(0.012, 0.03) * size
+                    cx, cy = rng.uniform(r + 2, size - r - 2, 2)
+                    draw.ellipse([cx - r, cy - r, cx + r, cy + r],
+                                 fill=tuple(int(v) for v in rng.integers(200, 256, 3)),
+                                 outline=(30, 30, 30))
+                    w = h = 2 * r
+                else:  # a tall box
+                    w, h = rng.uniform(0.06, 0.14) * size, rng.uniform(0.15, 0.3) * size
+                    cx = rng.uniform(w / 2 + 2, size - w / 2 - 2)
+                    cy = rng.uniform(h / 2 + 2, size - h / 2 - 2)
+                    draw.rectangle([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                                   fill=tuple(int(v) for v in rng.integers(0, 120, 3)),
+                                   outline=(240, 240, 240), width=2)
+                row = [cls, cx / size, cy / size, w / size, h / size]
+                kr = max(2.0, 0.08 * min(w, h))
+                for (kx, ky), col in (((cx, cy - h / 2 + kr), (255, 40, 40)),
+                                      ((cx, cy + h / 2 - kr), (40, 40, 255))):
+                    vis = 2 if rng.uniform() > 0.1 else 0
+                    if vis:
+                        draw.ellipse([kx - kr, ky - kr, kx + kr, ky + kr], fill=col)
+                    row += [kx / size, ky / size, vis]
+                rows.append(" ".join(str(v) if isinstance(v, int) else f"{v:.6f}" for v in row))
+            im.save(os.path.join(d, f"img_{i:04d}.png"))
+            with open(os.path.join(d, f"img_{i:04d}.txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+    with open(os.path.join(REPO, "configs", "detection", "config_kp.yaml")) as f:
+        config = yaml.safe_load(f)
+    config["train_config"]["data_path"] = os.path.join(root, "data")
+    config_path = os.path.join(root, "config.yaml")
+    anchors_path = os.path.join(root, "anchors.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    with open(os.path.join(REPO, "configs", "detection", "anchors_kp.yaml")) as src, \
+            open(anchors_path, "w") as dst:
+        dst.write(src.read())
+    return config, config_path, anchors_path
+
+
+def kp_train_phase(root):
+    """train_det.run (--map_eval) on keypoint data: its artifacts (the saved
+    config with num_keypoints, a pck column); one step card vs CPU with the
+    keypoint loss terms (TRAIN_LIMITS); the learning check, whose net goes
+    on to EVAL_LEARN_STEPS steps; eval_det on both checkpoints, card and
+    CPU, in bf16 and int8 (eval_phase)."""
+    config, config_path, anchors_path = write_kp_train_data(root)
+    pipe, seconds, peak = run_train_cli(root, config, config_path, anchors_path)
+    check_train_artifacts(root, pipe)
+    last = pipe._train_metrics[-1]
+    print(f"kp train: train_det.run on {N_KP_TRAIN} + {N_KP_VALID} keypoint images, "
+          f"{TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH}, 640x640, bf16: {seconds:.2f} s in all; "
+          f"epoch 2 {last['images_per_sec']:.1f} images/s (host clock, loader included); peak "
+          f"memory allocated {peak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(m['aggregate_loss'], 4) for m in pipe._train_metrics]}, kp_loss "
+          f"{[round(m['kp_loss'], 4) for m in pipe._train_metrics]}")
+    config["model_config"]["num_keypoints"] = KP
+    anchors = shipped_anchors("detection", "_kp")
+    parity = card_vs_cpu_step(config, anchors, limits=KP_TRAIN_LIMITS)
+    losses, fixed_ms, (lpipe, batch) = learning_check(config, anchors)
+    for _ in range(EVAL_LEARN_STEPS - LEARN_STEPS):
+        lpipe.train_step(*batch)
+    learned = save_learned(root, config, lpipe.model)
+    del lpipe, batch
+    evaluated = eval_phase(root, learned, "keypoints")
+    return dict(cli_seconds=seconds, peak_bytes=peak, train_metrics=pipe._train_metrics,
+                eval_metrics=pipe._eval_metrics, card_vs_cpu=parity, learning_losses=losses,
+                fixed_batch_step_ms=fixed_ms, eval=evaluated)
+
+
 def _leaves(tree):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2908,6 +3323,12 @@ def main():
                     out_dir, "int8_serve_profile.txt") if args.profile else None)
             int8_seg_serve, int8_seg_seen = int8_serve_phase(
                 root, seg[0], seg[1], img_dirs, seg_serve["forward_ms_per_batch"], "segmentation")
+        with phase_clock("kp serve, kp video, int8 kp serve (28, 31, 32; within the phases "
+                         "above)"):
+            kp_serve, kp_seen, kp = kp_serve_phase(root, img_dirs, fwd_ms)
+            kp_video = kp_video_phase(root, clips[VIDEO_FRAMES], samples, kp)
+            kp_int8_serve, kp_int8_seen = int8_serve_phase(
+                root, kp[0], kp[1], img_dirs, kp_serve["forward_ms_per_batch"])
     n_batches = -(-N_IMAGES // BATCH)
     for route, n in launches.items():
         per_batch = sum(1 for s in seen if s[0] == route)
@@ -2925,11 +3346,14 @@ def main():
         tn_adv_serve, tn_adv_seen, tn_adv_extra = tn_serve_phase(root, TN_ADV)
     with tempfile.TemporaryDirectory() as root, phase_clock("tracknet adv train (21-22)"):
         tn_adv_train = tn_train_phase(root, out_dir, args.profile, TN_ADV)
+    with tempfile.TemporaryDirectory() as root, phase_clock("kp train, kp eval (29-30, 32)"):
+        kp_train = kp_train_phase(root)
     with phase_clock("kernels (3)"):
         rows, summary = kernel_phase({
             "serve": (seen, launches), "seg_serve": (seg_seen, seg_serve["launches"]),
             "tracknet_serve": (tn_seen, tn_serve_res["launches"]),
-            "tracknet_adv_serve": (tn_adv_seen, tn_adv_serve["launches"])},
+            "tracknet_adv_serve": (tn_adv_seen, tn_adv_serve["launches"]),
+            "kp_serve": (kp_seen, kp_serve["launches"])},
             {**tn_extra, **tn_adv_extra})
         big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
     with phase_clock("s8 kernels (27)"):
@@ -2942,7 +3366,8 @@ def main():
             "int8_serve": (int8_seen, s8_launches(int8_serve)),
             "int8_seg_serve": (int8_seg_seen, s8_launches(int8_seg_serve)),
             "tracknet_int8_serve": (tn_int8.pop("one_batch"), s8_launches(tn_int8)),
-            "tracknet_adv_int8_serve": (tn_adv_int8.pop("one_batch"), s8_launches(tn_adv_int8))},
+            "tracknet_adv_int8_serve": (tn_adv_int8.pop("one_batch"), s8_launches(tn_adv_int8)),
+            "kp_int8_serve": (kp_int8_seen, s8_launches(kp_int8_serve))},
             {**tn_int8.pop("extra"), **tn_adv_int8.pop("extra")}, S8_KERNELS, run_s8_case,
             S8_RAGGED, main="int8_serve")
     summary += s8_summary
@@ -2960,7 +3385,8 @@ def main():
                        tracknet_train=tn_train, tracknet_adv_serve=tn_adv_serve,
                        tracknet_adv_train=tn_adv_train, tracknet_dec13_big=big, cases=rows,
                        int8_serve=int8_serve, int8_seg_serve=int8_seg_serve, s8_cases=s8_rows,
-                       kernels=summary), f, indent=1,
+                       kp_serve=kp_serve, kp_video=kp_video, kp_int8_serve=kp_int8_serve,
+                       kp_train=kp_train, kernels=summary), f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))
     print(f"card: {card}")

@@ -8,8 +8,9 @@ eval_det.py plus `--device` (default `cuda`).
 It serves the checkpoint in the deploy form over a YOLO-format directory
 (`tools.eval_harness.evaluate_checkpoint_map`) and prints the JAX CLI's one
 JSON line, with the same keys and rounding:
-{"map50": ..., "iou_threshold": ..., "ap_per_class": [...], ...}.
-`--quantize int8` scores the int8 serving form, calibrated on the first
+{"map50": ..., "iou_threshold": ..., "ap_per_class": [...], ...}; a
+keypoint checkpoint adds "pck10", "pck_matched" and "num_visible_keypoints"
+after "iou_threshold". `--quantize int8` scores the int8 serving form, calibrated on the first
 batch of the directory.
 """
 import argparse
@@ -47,6 +48,10 @@ def run(args) -> dict:
     out = {
         f"map{int(round(args.iou * 100))}": round(result["map"], 5),
         "iou_threshold": args.iou,
+        **({f"pck{int(round(result['pck_radius'] * 100))}": round(result["pck"], 5),
+            "pck_matched": round(result["pck_matched"], 5),
+            "num_visible_keypoints": result["num_visible_keypoints"]}
+           if "pck" in result else {}),
         "ap_per_class": [None if np.isnan(v) else round(float(v), 5)
                          for v in result["ap_per_class"]],
         "num_gt_per_class": [int(v) for v in result["num_gt_per_class"]],

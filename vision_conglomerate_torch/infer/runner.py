@@ -21,10 +21,15 @@ on `cuda`, copies each batch to the card on a side stream
 (`_prefetch_batches`); `VCT_INFER_PREFETCH=0` runs decode, copy and
 compute one after another instead, as in the JAX package.
 
+A keypoint net (`model_config.num_keypoints`, which the train CLI writes
+into the saved config) also draws each kept box's keypoints
+(`utils.drawing.apply_keypoints`); on video they ride the tracker as the
+detections' `data={"keypoints": ...}` payload, and `tracked_classes`
+filters them with the boxes.
+
 On `cuda` the network runs in bf16 and its BN-folded 1x1 and stride-1 3x3
 convs run on the port's CUDA kernels; on `cpu` (only when asked for) it
-runs in f32 on the kernels' plain versions. Keypoints (ROADMAP §A.13) are
-not in the port yet and raise.
+runs in f32 on the kernels' plain versions.
 
 `quantize="int8"` serves the int8 post-training-quantized deploy form, as
 the JAX package does: the first batch of the actual input calibrates each
@@ -56,8 +61,8 @@ from ..nn.reparam import deploy_transform
 from ..ops.postprocess import assemble_instance_masks, postprocess_detections
 from ..tools.bytetrack import ByteTrack, Detections
 from ..train.checkpoint import load_checkpoint
-from ..utils.drawing import (apply_bboxes, apply_bboxes_from_tracks, apply_segments,
-                             detection_summary_df)
+from ..utils.drawing import (apply_bboxes, apply_bboxes_from_tracks, apply_keypoints,
+                             apply_segments, detection_summary_df)
 from ..utils.labels import xyxy2xywh_np
 from ..weights import flax_to_state_dict
 
@@ -333,9 +338,9 @@ def run_detection_inference(
     else:
         raise OSError(f"{path} not found")
 
+    num_keypoints = model_config.get("num_keypoints") or 0
     model, num_classes = load_detection_model(
-        weights_path, model_config, task=task,
-        num_keypoints=model_config.get("num_keypoints") or None,
+        weights_path, model_config, task=task, num_keypoints=num_keypoints or None,
         use_reparam=use_reparam, device=dev, quantize=quantize)
     storage = storage_path or os.path.join(
         "outputs", task, str(datetime.now()).replace(":", "_"))
@@ -362,12 +367,14 @@ def run_detection_inference(
             preds, protos = preds if model.with_proto_seg else (preds, None)
             post = postprocess_detections(
                 preds, num_classes=num_classes, num_masks=model.num_masks,
-                iou_threshold=iou_threshold, score_threshold=score_threshold,
-                box_allowance=box_allowance, max_detections=max_detections)
+                num_keypoints=num_keypoints, iou_threshold=iou_threshold,
+                score_threshold=score_threshold, box_allowance=box_allowance,
+                max_detections=max_detections)
             boxes_np = post.boxes_xyxy.cpu().numpy()
             scores_np = post.scores.cpu().numpy()
             classes_np = post.classes.cpu().numpy()
             valid_np = post.valid.cpu().numpy()
+            kp_np = post.keypoints.cpu().numpy()
             if is_video and vwriter is None:
                 vwriter = _open_video_writer(os.path.join(storage, "video.mp4"), fps, og_hw)
             for i in range(imgs.shape[0]):
@@ -375,12 +382,14 @@ def run_detection_inference(
                 boxes = np.concatenate(
                     [scores_np[i][:, None], classes_np[i][:, None].astype(np.float32),
                      boxes_np[i]], axis=-1)[valid_np[i]]
+                kp = kp_np[i][valid_np[i]]
                 masks = None
                 if protos is not None:
                     masks = kept_masks(protos[i], post, i, og_hw, crop_masks)
                 if tracked_classes:
                     sel = np.isin(boxes[:, 1], tracked_classes)
                     boxes = boxes[sel]
+                    kp = kp[sel]
                     masks = None if masks is None else masks[sel]
                 img = ogs[i] if save_og_size else (imgs[i] * 255).astype(np.uint8)
                 img = np.ascontiguousarray(img)
@@ -395,10 +404,13 @@ def run_detection_inference(
                 if tracker is None:
                     img = apply_bboxes(img, boxes, **draw_kwargs)
                     out_boxes = boxes
+                    if kp.size:
+                        img = apply_keypoints(img, kp.reshape(-1, 3))
                 else:
                     det = tracker.update_with_detections(Detections(
                         xyxy=boxes[:, 2:], confidence=boxes[:, 0],
-                        class_id=boxes[:, 1].astype(int)))
+                        class_id=boxes[:, 1].astype(int),
+                        data={"keypoints": kp} if kp.size else None))
                     if len(det) == 0:
                         logger.info(f"frame {frame_no} has no tracked detections")
                         vwriter.write(cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
@@ -407,6 +419,9 @@ def run_detection_inference(
                         det.tracker_id[:, None].astype(np.float32), det.confidence[:, None],
                         det.class_id[:, None].astype(np.float32), det.xyxy], axis=-1)
                     img, out_boxes = apply_bboxes_from_tracks(img, tracks, **draw_kwargs)
+                    tracked_kp = (det.data or {}).get("keypoints")
+                    if tracked_kp is not None and tracked_kp.size:
+                        img = apply_keypoints(img, tracked_kp.reshape(-1, 3))
                 if with_summary and len(out_boxes):
                     out_boxes = np.array(out_boxes, dtype=np.float64, copy=True)
                     out_boxes[:, -4:] = xyxy2xywh_np(out_boxes[:, -4:])

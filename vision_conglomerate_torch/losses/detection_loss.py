@@ -9,14 +9,17 @@ fixed-capacity assigner:
   then only winners write), which is deterministic on the card too;
 - class BCE with label smoothing cn = 0.5*ls, cp = 1 - cn;
 - the focal form for conf and class when alpha and gamma are set;
-- per-scale weights `scale_w`, then box/conf/class weights, optional
-  batch_scale_loss; NaN losses count as 0;
+- keypoints: a 3-class softmax CE of the visibility logits against
+  clip(v, 0, 2) and an MSE of the bbox-relative xy, each a mean over the
+  matched keypoints whose label is finite (ragged rows are +inf padded),
+  kp = (1 + kpv) * kpc;
+- per-scale weights `scale_w`, then box/conf/class/keypoints weights,
+  optional batch_scale_loss; NaN losses count as 0;
 - metrics on the device: mean CIoU, conf/class losses, mean positive and
-  negative confidence, macro accuracy/f1/precision/recall, each a nanmean
-  over the three scales.
+  negative confidence, macro accuracy/f1/precision/recall (and kpv_loss,
+  kpc_loss, kp_loss), each a nanmean over the three scales.
 
-The keypoint branch is not in the port yet (ROADMAP §A.13). `class_weights`
-is accepted by the config and unused, as in the reference.
+`class_weights` is accepted by the config and unused, as in the reference.
 """
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
@@ -26,7 +29,7 @@ import torch
 from ..ops.boxes import compute_ciou
 from ..ops.metrics import macro_classification_metrics, masked_mean
 from .assigner import AssignResult, assign_targets_to_scale
-from .focal import make_binary_lossfn
+from .focal import make_binary_lossfn, softmax_cross_entropy
 
 
 @dataclass(frozen=True)
@@ -86,8 +89,6 @@ def scale_loss(
     full-grid conf BCE, so each sample scores once. None keeps the plain
     train-path computation.
     """
-    if cfg.num_keypoints and labels.shape[-1] > 5:
-        raise NotImplementedError("the keypoint loss is not in the port yet (ROADMAP §A.13)")
     b, ny, nx, na, _ = preds.shape
     c = cfg.num_classes
     binfn = make_binary_lossfn(cfg.alpha, cfg.gamma)
@@ -137,6 +138,22 @@ def scale_loss(
 
     losses = {"box": _nan_to_zero(ciou_loss), "conf": conf_loss,
               "class": _nan_to_zero(class_loss)}
+    kp_metrics = {}
+    if cfg.num_keypoints and labels.shape[-1] > 5:
+        nkp = cfg.num_keypoints
+        p_kp = match[:, 5 + c:].reshape(-1, nkp, 5)
+        t_kp = asn.keypoints.reshape(-1, nkp, 3)
+        kp_valid = torch.isfinite(t_kp).all(dim=-1) & valid[:, None]  # (N, nkp)
+        # clip before the cast: padded slots hold +inf
+        kpv_elem = softmax_cross_entropy(p_kp[..., 2:], t_kp[..., 2].clamp(0, 2).long())
+        kpv_loss = masked_mean(kpv_elem, kp_valid)
+        # the padded +inf leaves the target before the square, so no NaN
+        # reaches the gradient through the masked rows
+        t_xy = torch.where(kp_valid[..., None], t_kp[..., :2], torch.zeros_like(t_kp[..., :2]))
+        kpc_loss = masked_mean(torch.square(p_kp[..., :2] - t_xy).mean(dim=-1), kp_valid)
+        kp_loss = (1.0 + kpv_loss) * kpc_loss
+        losses["keypoints"] = _nan_to_zero(kp_loss)
+        kp_metrics = {"kpv_loss": kpv_loss, "kpc_loss": kpc_loss, "kp_loss": kp_loss}
 
     pred_labels = p_cls.detach().argmax(dim=-1)
     mean_ciou = masked_mean(ciou_d, valid)
@@ -147,6 +164,7 @@ def scale_loss(
         "avg_neg_conf": avg_neg_conf,
         "class_loss": class_loss,
         **macro_classification_metrics(pred_labels, asn.classes, valid, c),
+        **kp_metrics,
     }
     return losses, metrics
 
@@ -169,6 +187,8 @@ def detection_loss(
         return sum(sw[i] * per_scale[i][0][key] for i in range(3))
 
     loss = cfg.box_w * agg("box") + cfg.conf_w * agg("conf") + cfg.class_w * agg("class")
+    if "keypoints" in per_scale[0][0]:
+        loss = loss + cfg.keypoints_w * agg("keypoints")
     if cfg.batch_scale_loss:
         loss = loss * (preds[-1].shape[0] if image_mask is None else image_mask.float().sum())
     metrics = {"aggregate_loss": loss}

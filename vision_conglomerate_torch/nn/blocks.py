@@ -577,20 +577,21 @@ class ProtoSegModule(nn.Module):
 
 
 class EffiDecHead(nn.Module):
-    """Efficient decoupled head. Output (N, ny, nx, na, 1 + C + 4 [+ K]) =
-    [conf, cls, bbox, masks], the JAX package's layout; the mask
-    coefficients come with `num_masks`.
+    """Efficient decoupled head. Output (N, ny, nx, na, 1 + C + 4 [+ K]
+    [+ 5 Kp]) = [conf, cls, bbox, masks, keypoints], the JAX package's
+    layout; the mask coefficients come with `num_masks`, the keypoints
+    ([x, y, v0, v1, v2] each) with `num_keypoints`.
 
     The shared regression tower feeds both conf and bbox and is computed
     once. The stem width is round(cin * width_multiple), not channels8.
     The mask branch is `masks_fmap_depth` 3x3 ConvBNorms over the stem and
-    a 1x1 `masks_layer`. The keypoint branch is not in the port yet
-    (ROADMAP §A.13); its depth, which configs may carry, has no effect here.
+    a 1x1 `masks_layer`; the keypoint branch likewise
+    `keypoints_fmap_depth` of them and a 1x1 `keypoints_layer`.
     """
 
     def __init__(self, in_channels: int, num_classes: int, num_anchors: int = 3,
-                 num_masks: Optional[int] = None, width_multiple: float = 1.0,
-                 reg_fmap_depth: int = 1, cls_fmap_depth: int = 1,
+                 num_masks: Optional[int] = None, num_keypoints: Optional[int] = None,
+                 width_multiple: float = 1.0, reg_fmap_depth: int = 1, cls_fmap_depth: int = 1,
                  masks_fmap_depth: Optional[int] = None,
                  keypoints_fmap_depth: Optional[int] = None, folded: bool = False,
                  device=None):
@@ -598,6 +599,7 @@ class EffiDecHead(nn.Module):
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.num_masks = num_masks or 0
+        self.num_keypoints = num_keypoints or 0
         stem_out = max(round(in_channels * width_multiple), 1)
         reg_depth = max(round(reg_fmap_depth), 1)
         cls_depth = max(round(cls_fmap_depth), 1)
@@ -616,6 +618,11 @@ class EffiDecHead(nn.Module):
             self.mask_fmap_layer = nn.Sequential(*[conv3(stem_out) for _ in range(m_depth)])
             self.masks_layer = nn.Conv2d(stem_out, num_anchors * self.num_masks, 1,
                                          device=device)
+        if self.num_keypoints:
+            kp_depth = max(round(keypoints_fmap_depth or 1), 1)
+            self.keypoints_fmap_layer = nn.Sequential(*[conv3(stem_out) for _ in range(kp_depth)])
+            self.keypoints_layer = nn.Conv2d(stem_out, num_anchors * 5 * self.num_keypoints, 1,
+                                             device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, ny, nx = x.shape
@@ -632,6 +639,9 @@ class EffiDecHead(nn.Module):
         if self.num_masks:
             masks = conv2d(self.mask_fmap_layer(stem), self.masks_layer)
             parts.append(per_anchor(masks, self.num_masks))
+        if self.num_keypoints:
+            kp = conv2d(self.keypoints_fmap_layer(stem), self.keypoints_layer)
+            parts.append(per_anchor(kp, 5 * self.num_keypoints))
         return torch.cat(parts, dim=-1)
 
 

@@ -4,11 +4,12 @@ package's ops/postprocess.py in PyTorch.
 - scores = sigmoid(conf) * max(sigmoid(cls));
 - box_allowance adds to wh before the xywh -> xyxy conversion;
 - NMS is per image and class-agnostic;
+- keypoints of the kept rows are gathered like the boxes, as (x, y,
+  argmax of the visibility logits);
 - mask coefficients of the kept rows are gathered like the boxes, and
   `assemble_instance_masks` turns them into binary masks:
   sigmoid(protos . coefs), bilinear to the og size, > 0.5, optionally
   cropped to the box.
-Keypoints (ROADMAP §A.13) are not in the port yet.
 """
 from typing import NamedTuple, Optional, Tuple
 
@@ -24,13 +25,15 @@ class PostProcessResult(NamedTuple):
     scores: torch.Tensor       # (B, K)
     classes: torch.Tensor      # (B, K) int32 argmax class
     valid: torch.Tensor        # (B, K) bool
+    keypoints: torch.Tensor    # (B, K, Kp, 3) [x, y, vis] or (B, K, 0, 3)
     mask_coefs: torch.Tensor   # (B, K, Km) or (B, K, 0)
 
 
 def postprocess_detections(
-    preds: torch.Tensor,  # (B, M, 5 + C + Km) flattened inference-decoded preds
+    preds: torch.Tensor,  # (B, M, 5 + C + Km + 5 Kp) flattened inference-decoded preds
     num_classes: int,
     num_masks: int = 0,
+    num_keypoints: int = 0,
     iou_threshold: float = 0.5,
     score_threshold: float = 0.1,
     box_allowance: float = 0.0,
@@ -58,9 +61,14 @@ def postprocess_detections(
         class_agnostic=True,
         topk_method=topk_method,
     )
-    coefs = preds[..., 5 + c:5 + c + num_masks]
-    coefs = torch.gather(coefs, 1, nms.indices[..., None].expand(-1, -1, coefs.shape[-1]))
-    return PostProcessResult(nms.boxes, nms.scores, nms.classes, nms.valid, coefs)
+    def take(t):
+        return torch.gather(t, 1, nms.indices[..., None].expand(-1, -1, t.shape[-1]))
+
+    kp_i = 5 + c + num_masks
+    kp = take(preds[..., kp_i:kp_i + 5 * num_keypoints]).unflatten(-1, (num_keypoints, 5))
+    kp = torch.cat([kp[..., :2], kp[..., 2:].argmax(dim=-1, keepdim=True).to(kp.dtype)], dim=-1)
+    coefs = take(preds[..., 5 + c:kp_i])
+    return PostProcessResult(nms.boxes, nms.scores, nms.classes, nms.valid, kp, coefs)
 
 
 def assemble_instance_masks(

@@ -10,6 +10,10 @@ directory -> mAP@IoU, the JAX package's tools/eval_harness.py in PyTorch.
 - `evaluate_checkpoint_seg` scores a SegmentationNet checkpoint's masks
   (mask mAP, dataset dice) and boxes over a polygon-label directory.
 
+A keypoint net (`num_keypoints`) is also scored by PCK@0.1
+(`map_eval.compute_pck`): the ground-truth keypoints go from
+bbox-relative back to input pixels.
+
 Both checkpoint harnesses take `quantize="int8"` (deploy form only): the
 first `batch_size` images of the directory, as uint8 / 255, calibrate the
 int8 form (`infer.runner.quantize_model_int8`), as in the JAX package.
@@ -32,7 +36,7 @@ import torch.nn.functional as F
 from ..ops.postprocess import PostProcessResult, in_box_grid, postprocess_detections
 from ..ops.preprocess import normalize_images
 from ..utils.labels import xywh2xyxy_np
-from .map_eval import compute_map
+from .map_eval import _iou_matrix, compute_map, compute_pck
 
 logger = logging.getLogger(__name__)
 
@@ -40,13 +44,15 @@ Forward = Callable[[np.ndarray], PostProcessResult]
 
 
 def _collect_and_score(forward: Forward, dataset, batch_size: int, num_classes: int,
-                       img_wh: Tuple[int, int], iou_threshold: float = 0.5) -> Dict[str, Any]:
+                       img_wh: Tuple[int, int], iou_threshold: float = 0.5,
+                       num_keypoints: int = 0, pck_radius: float = 0.1) -> Dict[str, Any]:
     """Run `forward` over the dataset in order, pair each image's kept
     boxes with its ground truth (YOLO xywh scaled to img_wh pixels), and
-    compute mAP. forward: (B, H, W, 3) uint8 batch -> PostProcessResult."""
+    compute mAP, and PCK@pck_radius when num_keypoints > 0. forward:
+    (B, H, W, 3) uint8 batch -> PostProcessResult."""
     w, h = img_wh
     scale = np.asarray([w, h, w, h], np.float32)
-    predictions, ground_truths = [], []
+    predictions, ground_truths, pck_rows = [], [], []
     n = len(dataset)
     for lo in range(0, n, batch_size):
         imgs, labels, mask = dataset.collate_fn(
@@ -56,14 +62,27 @@ def _collect_and_score(forward: Forward, dataset, batch_size: int, num_classes: 
         scores = post.scores.float().cpu().numpy()
         classes = post.classes.cpu().numpy()
         valid = post.valid.cpu().numpy()
+        kps = post.keypoints.float().cpu().numpy()
         for k in range(imgs.shape[0]):
             v = valid[k]
             predictions.append((boxes[k][v], scores[k][v], classes[k][v]))
             lab = labels[k][mask[k]]
-            ground_truths.append((xywh2xyxy_np(lab[:, 1:5]) * scale,
-                                  lab[:, 0].astype(np.int64)))
+            gt_xyxy = xywh2xyxy_np(lab[:, 1:5]) * scale
+            gt_cls = lab[:, 0].astype(np.int64)
+            ground_truths.append((gt_xyxy, gt_cls))
+            if num_keypoints:
+                gkp = lab[:, 5:].reshape(-1, num_keypoints, 3).copy()
+                span = gt_xyxy[:, None, 2:] - gt_xyxy[:, None, :2]
+                gkp[..., :2] = gt_xyxy[:, None, :2] + gkp[..., :2] * span
+                gt_wh = np.stack([gt_xyxy[:, 2] - gt_xyxy[:, 0],
+                                  gt_xyxy[:, 3] - gt_xyxy[:, 1]], axis=1)
+                pck_rows.append((_iou_matrix(boxes[k][v], gt_xyxy), scores[k][v],
+                                 classes[k][v], gt_cls, kps[k][v], gkp, gt_wh))
     result = compute_map(predictions, ground_truths, num_classes, iou_threshold=iou_threshold)
     result["num_images"] = n
+    if num_keypoints:
+        result.update(compute_pck(pck_rows, r=pck_radius, iou_threshold=iou_threshold))
+        result["pck_radius"] = pck_radius
     return result
 
 
@@ -78,7 +97,7 @@ def _calibrate_int8(model: torch.nn.Module, dataset, batch_size: int) -> None:
 
 def _make_postprocess_forward(model: torch.nn.Module, num_classes: int,
                               iou_threshold_nms: float = 0.35, score_threshold: float = 0.001,
-                              max_detections: int = 300) -> Forward:
+                              max_detections: int = 300, num_keypoints: int = 0) -> Forward:
     """uint8 NHWC numpy batch -> on the model's device: /255, forward,
     decode, NMS with box_allowance 0. The model's mode is the caller's."""
     dev = model.sm_anchors.device
@@ -88,8 +107,8 @@ def _make_postprocess_forward(model: torch.nn.Module, num_classes: int,
         x = normalize_images(torch.from_numpy(imgs).to(dev))
         preds = model(x.permute(0, 3, 1, 2), inference=True)
         return postprocess_detections(
-            preds, num_classes=num_classes, iou_threshold=iou_threshold_nms,
-            score_threshold=score_threshold, box_allowance=0.0,
+            preds, num_classes=num_classes, num_keypoints=num_keypoints,
+            iou_threshold=iou_threshold_nms, score_threshold=score_threshold, box_allowance=0.0,
             max_detections=max_detections)
 
     return forward
@@ -110,7 +129,9 @@ def evaluate_checkpoint_map(
     device=None,
 ) -> Dict[str, Any]:
     """Checkpoint + YOLO-format directory -> {"map", "ap_per_class",
-    "num_gt_per_class", "num_images"}. `device` None means cuda."""
+    "num_gt_per_class", "num_images"}, and for a keypoint net {"pck",
+    "pck_matched", "num_visible_keypoints", "num_matched_keypoints",
+    "pck_radius"}. `device` None means cuda."""
     from ..data.detection import DetectionDataset
     from ..infer.runner import check_quantize, load_detection_model
 
@@ -120,15 +141,18 @@ def evaluate_checkpoint_map(
     img_wh = tuple(tc["img_config"]["img_wh"])
     dataset = DetectionDataset(data_dir, img_ext=tc["img_config"]["img_ext"], img_wh=img_wh,
                                max_labels=max_labels)
+    num_keypoints = model_config.get("num_keypoints") or 0
     model, num_classes = load_detection_model(
-        weights_path, model_config, num_keypoints=model_config.get("num_keypoints") or None,
+        weights_path, model_config, num_keypoints=num_keypoints or None,
         use_reparam=use_reparam, device=device, quantize=quantize)
     if int8:
         _calibrate_int8(model, dataset, batch_size)
     forward = _make_postprocess_forward(
         model, num_classes, iou_threshold_nms=nms_iou_threshold,
-        score_threshold=score_threshold, max_detections=max_detections)
-    return _collect_and_score(forward, dataset, batch_size, num_classes, img_wh, iou_threshold)
+        score_threshold=score_threshold, max_detections=max_detections,
+        num_keypoints=num_keypoints)
+    return _collect_and_score(forward, dataset, batch_size, num_classes, img_wh, iou_threshold,
+                              num_keypoints=num_keypoints)
 
 
 def evaluate_checkpoint_seg(
@@ -255,10 +279,13 @@ def evaluate_pipeline_map(
     was_training = model.training
     model.eval()
     try:
+        num_keypoints = model.num_keypoints or 0
         forward = _make_postprocess_forward(
             model, model.num_classes, iou_threshold_nms=nms_iou_threshold,
-            score_threshold=score_threshold, max_detections=max_detections)
+            score_threshold=score_threshold, max_detections=max_detections,
+            num_keypoints=num_keypoints)
         return _collect_and_score(forward, dataset, batch_size, model.num_classes,
-                                  tuple(dataset.img_wh), iou_threshold)
+                                  tuple(dataset.img_wh), iou_threshold,
+                                  num_keypoints=num_keypoints)
     finally:
         model.train(was_training)

@@ -6,9 +6,8 @@ Standard all-point-interpolated average precision per class (PASCAL VOC
 classes that have ground truth. Inputs are per-image detections (the
 postprocess_detections outputs, on the host) and ground truths.
 
-`greedy_dice` is the segmentation harness's dataset dice. The keypoint
-score of the JAX module (`compute_pck`) comes with that head (ROADMAP
-§A.13).
+`greedy_dice` is the segmentation harness's dataset dice, `compute_pck`
+the keypoint harness's PCK@r.
 """
 from typing import Dict, Sequence, Tuple
 
@@ -166,3 +165,62 @@ def greedy_dice(
 
 def compute_map50(predictions, ground_truths, num_classes: int):
     return compute_map(predictions, ground_truths, num_classes, iou_threshold=0.5)
+
+
+def compute_pck(
+    per_image: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                              np.ndarray, np.ndarray, np.ndarray]],
+    r: float = 0.1,
+    iou_threshold: float = 0.5,
+) -> Dict[str, float]:
+    """PCK@r keypoint accuracy.
+
+    per_image: (box_iou (n, m), scores (n,), pred_classes (n,),
+    gt_classes (m,), pred_kp (n, Kp, 3) [x, y, vis] pixels,
+    gt_kp (m, Kp, 3) [x, y, vis] pixels, gt_wh (m, 2) pixels).
+
+    Predictions are greedily matched to same-class ground-truth boxes by
+    score at box IoU >= iou_threshold (each ground truth once). A visible
+    ground-truth keypoint (vis > 0 and finite: padded slots are +inf) of a
+    matched instance is correct when the predicted one lies within
+    r * max(gt box w, h) of it.
+      pck          - correct / all visible ground-truth keypoints (a missed
+                     instance counts all its keypoints as wrong);
+      pck_matched  - correct / visible keypoints of matched instances.
+    """
+    total_vis = 0
+    matched_vis = 0
+    correct = 0
+
+    def _visible(kp):
+        kp = np.asarray(kp)
+        return (kp[..., 2] > 0) & np.isfinite(kp).all(axis=-1)
+
+    for iou, scores, pc, gc, pkp, gkp, gwh in per_image:
+        m = len(gc)
+        total_vis += int(_visible(gkp).sum()) if m else 0
+        if m == 0 or len(scores) == 0:
+            continue
+        order = np.argsort(-np.asarray(scores))
+        taken = np.zeros(m, bool)
+        for j in order:
+            cand = np.where((np.asarray(gc) == pc[j]) & ~taken)[0]
+            if cand.size == 0:
+                continue
+            best = cand[np.argmax(iou[j, cand])]
+            if iou[j, best] < iou_threshold:
+                continue
+            taken[best] = True
+            vis = _visible(gkp[best])
+            matched_vis += int(vis.sum())
+            if not vis.any():
+                continue
+            thresh = r * float(max(gwh[best][0], gwh[best][1]))
+            d = np.hypot(pkp[j][:, 0] - gkp[best][:, 0], pkp[j][:, 1] - gkp[best][:, 1])
+            correct += int((d[vis] <= thresh).sum())
+    return {
+        "pck": correct / max(total_vis, 1),
+        "pck_matched": correct / max(matched_vis, 1),
+        "num_visible_keypoints": total_vis,
+        "num_matched_keypoints": matched_vis,
+    }

@@ -67,7 +67,7 @@ class TrainDetectionPipeline(BasePipeline):
             model_name=model_name or type(model).__name__,
             config_path=config_path,
             lr_schedule_interval=lr_schedule_interval,
-            num_keypoints=None,
+            num_keypoints=model.num_keypoints,
         )
         if init_scheme:
             INIT_SCHEMES[init_scheme](model, torch.Generator().manual_seed(seed))

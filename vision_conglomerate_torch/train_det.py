@@ -9,7 +9,11 @@ saved_model/detection/best_model/DetectionNet.ckpt.tar with its
 config/config.yaml, and snapshots under saved_model/detection/checkpoints/.
 Auto-anchors may rewrite the file given as --anchors_path, and no other.
 The lr is scaled by the device count (1). `--map_eval` adds the val set's
-mAP@50 to each eval record (a `map50` column in eval_metrics.csv).
+mAP@50 to each eval record (a `map50` column in eval_metrics.csv), and for
+keypoint data its PCK@0.1 (a `pck` column). Keypoint data ((cols - 5) // 3
+keypoints per label row, as `configs/detection/config_kp.yaml` expects)
+gives the heads a keypoint branch, and the saved config/config.yaml
+carries `num_keypoints`.
 `model_config.remat`, which the CLI turns on by default at batch >= 32,
 recomputes each backbone and neck stage in the backward pass
 (`nn.blocks.stage`). `--use_ddp` is not in the port yet and raises (ROADMAP
@@ -157,9 +161,13 @@ def fit(args, pipeline, train_dl, eval_dl):
 
                 map_res = evaluate_pipeline_map(pipeline, eval_dl.dataset,
                                                 batch_size=args.batch_size)
-                pipeline.annotate_last("eval", {"map50": float(map_res["map"])})
+                extra = {"map50": float(map_res["map"])}
+                if "pck" in map_res:
+                    extra["pck"] = float(map_res["pck"])
+                pipeline.annotate_last("eval", extra)
                 if verbose:
-                    logger.info(f"mAP@50: {map_res['map']:.4f}")
+                    logger.info(f"mAP@50: {map_res['map']:.4f}" + (
+                        f"  PCK@0.1: {map_res['pck']:.4f}" if "pck" in map_res else ""))
             if metrics[pipeline.eval_loss_key] < best_loss:
                 best_loss = metrics[pipeline.eval_loss_key]
                 pipeline.save_best_model()

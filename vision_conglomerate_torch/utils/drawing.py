@@ -1,7 +1,5 @@
 """Host-side rendering and summary tables (cv2/pandas), as in the JAX
-package's utils/drawing.py. Inputs are HWC numpy images.
-
-`apply_keypoints` comes with the keypoint head (ROADMAP §A.13)."""
+package's utils/drawing.py. Inputs are HWC numpy images."""
 from typing import Any, Dict, List, Optional
 
 import cv2
@@ -60,6 +58,24 @@ def apply_bboxes(img: np.ndarray, bboxes: np.ndarray, box_thickness: int = 2,
         tw, th = cv2.getTextSize(text, FONT, FONT_SCALE, text_thickness)[0]
         img = cv2.rectangle(img, (x1, y1 - th - 4), (x1 + tw + 2, y1), color, cv2.FILLED)
         img = cv2.putText(img, text, (x1, y1 - 2), FONT, FONT_SCALE, (0, 0, 0), text_thickness)
+    return img
+
+
+def apply_keypoints(img: np.ndarray, keypoints: np.ndarray) -> np.ndarray:
+    """Filled dots of radius 3 at (k, 3) [x, y, vis] keypoints (truncated
+    to int) on an HWC image, coloured by visibility class: 0 white, 1
+    light yellow; class 2 is not drawn."""
+    if img.dtype != np.uint8:
+        img = (img * 255).astype(np.uint8)
+    img = np.ascontiguousarray(img)
+    for x, y, vis in keypoints.astype(int):
+        if vis == 0:
+            color = (255, 255, 255)
+        elif vis == 1:
+            color = (255, 255, 100)
+        else:
+            continue
+        img = cv2.circle(img, (int(x), int(y)), 3, color=color, thickness=-1)
     return img
 
 

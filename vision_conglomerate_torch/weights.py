@@ -34,6 +34,7 @@ import torch
 SEQUENCES = frozenset({
     "head", "bottlenecks", "blocks", "conv_1_3_4",
     "regression_fmap_layer", "classification_fmap_layer", "mask_fmap_layer",
+    "keypoints_fmap_layer",
 })
 
 
