@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection, keypoint detection, segmentation and
-TrackNet (base and advanced) paths on one NVIDIA GPU, in bf16 and in the
-int8 post-training-quantized serve form, and hold its CUDA kernels against
-their plain PyTorch versions.
+"""Drive the PyTorch port's detection (with its alternate components),
+keypoint detection, segmentation and TrackNet (base and advanced) paths on
+one NVIDIA GPU, in bf16 and in the int8 post-training-quantized serve form,
+and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also writes torch.profiler tables
@@ -233,7 +233,30 @@ Phases (any failure exits non-zero; nothing is caught):
    keypoint rows drawn for each track row (the tracker's payload).
 32. int8 kp serve: phase 23 for the kp checkpoint, keypoint xy and
    visibility logits within INT8_KP_LIMITS.
-The kernel phase (3) runs last, over the shapes of the five serve paths
+33. alternates serve: two nets, each configs/detection/config.yaml as
+   shipped with keys changed (ALT_NETS) and written as a config file:
+   resnet_basichead (ResNetBackBone with the shipped resnetbackbone_config,
+   RepBiPAN with upsample_mode bilinear, BasicHead) and csp_s2d (the CSP
+   backbone with space_to_depth_stem and early_min_channels 64), with
+   seeded weights and BatchNorm state on the shipped anchors, serve the 8
+   images at batch 4 as phase 2 does: both counters zeroed before and
+   risen after by the forward's launches a batch (the s2d stem, Cin 12,
+   and BasicHead's stem_layer run on conv3x3; ResNet's convs keep
+   eval-mode BatchNorm on cuDNN), card vs CPU within ALT_MODEL_LIMITS.
+34. serve-fast decode: ops/serve_decode.decode_and_postprocess on the
+   card on one batch's raw fields of resnet_basichead (BasicHead's packed
+   map) against the runner's decode + postprocess_detections: the same
+   kept rows in each image up to the order of equal scores (FAST_LIMITS):
+   the heads' raw-field maps and their per-anchor packing on the card.
+35. alternates train: train_det.run (--map_eval) on the resnet_basichead
+   config over phase 5's data, ALT_TRAIN_STEPS steps an epoch for 2
+   epochs: the artifacts, the saved config keeping the alternate keys;
+   one step card vs CPU of both nets as phase 6 (TRAIN_LIMITS).
+36. alternates int8 serve: phase 23 for both nets (ALT_INT8_LIMITS; no
+   warm rate): the s2d stem runs on the s8 conv kernel's element path.
+37. alternates eval: eval_det on the trained resnet_basichead best_model,
+   card and CPU, as phase 9.
+The kernel phase (3) runs last, over the shapes of the seven serve paths
 (TrackNet's, base and advanced: every shape its serve run launched, at
 batch 32, 8 and 6), and prints each kernel's sums per batch of each path
 (TrackNet's per batch of 32); then dec_13 at batch 64 (3.7e9 output
@@ -595,9 +618,10 @@ def recording_kernel_shapes():
         handle.remove()
 
 
-def compare_models(config, ckpt, img_dir):
-    """Card (bf16, kernels) vs CPU (f32, plain versions) on one batch; also
-    the forward's kernel shapes and its device throughput."""
+def compare_models(config, ckpt, img_dir, limits=MODEL_LIMITS, tag="serve"):
+    """Card (bf16, kernels) vs CPU (f32, plain versions) on one batch, by
+    field group within `limits`; also the forward's kernel shapes and its
+    device throughput. `tag` labels the printed lines."""
     from vision_conglomerate_torch.data.inference import InferenceImgDataset
     from vision_conglomerate_torch.infer.runner import detect, load_detection_model
 
@@ -612,7 +636,7 @@ def compare_models(config, ckpt, img_dir):
     t0 = time.time()
     gpu_model, _ = load_detection_model(ckpt, mc, device="cuda")
     torch.cuda.synchronize()
-    print(f"serve: model load (checkpoint -> deploy form, bf16 on the card) "
+    print(f"{tag}: model load (checkpoint -> deploy form, bf16 on the card) "
           f"{time.time() - t0:.3f} s")
     cpu_model, _ = load_detection_model(ckpt, mc, device="cpu")
     seen, handles = record_kernel_shapes(gpu_model)
@@ -629,14 +653,14 @@ def compare_models(config, ckpt, img_dir):
     for group, sl in (("logits", slice(0, 1 + NUM_CLASSES)),
                       ("boxes", slice(1 + NUM_CLASSES, 5 + NUM_CLASSES))):
         diff = (got[..., sl].cpu() - want[..., sl]).abs()
-        max_lim, mean_lim = MODEL_LIMITS[group]
+        max_lim, mean_lim = limits[group]
         stats[group] = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
                             max_ref=want[..., sl].abs().max().item())
-        print(f"serve: card bf16 vs cpu f32 {group}: max |d| {diff.max().item():.6g} "
+        print(f"{tag}: card bf16 vs cpu f32 {group}: max |d| {diff.max().item():.6g} "
               f"(limit {max_lim:g}), mean |d| {diff.mean().item():.6g} (limit {mean_lim:g}), "
               f"max |ref| {stats[group]['max_ref']:.6g}")
         check(diff.max().item() <= max_lim and diff.mean().item() <= mean_lim,
-              f"card predictions differ from the CPU reference in {group}")
+              f"{tag}: card predictions differ from the CPU reference in {group}")
 
     x = torch.from_numpy(imgs).cuda()
 
@@ -652,11 +676,11 @@ def compare_models(config, ckpt, img_dir):
         forward()
     torch.cuda.synchronize()
     fwd_ms = (time.time() - t0) / iters * 1e3
-    print(f"serve: forward + decode at batch {BATCH}: {fwd_ms:.3f} ms/batch "
+    print(f"{tag}: forward + decode at batch {BATCH}: {fwd_ms:.3f} ms/batch "
           f"= {BATCH / fwd_ms * 1e3:.1f} images/s (host clock, synchronized)")
     host = host_phases(got, items[0][1])
     host["decode_resize_ms_per_image"] = load_ms
-    print("serve: host clock, " + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    print(f"{tag}: host clock, " + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
     return seen, stats, fwd_ms, host, (gpu_model, forward)
 
 
@@ -1112,16 +1136,17 @@ def video_phase(root, config, net, clips, samples):
                 warm_frames_per_s={"prefetch": times["1"], "serial": times["0"]})
 
 
-def write_train_data(root):
-    """64 train and 16 valid 640x640 JPEGs with 2-6 filled boxes each and
-    YOLO labels over 80 classes (every class present), plus temp copies of
-    the shipped config (data_path pointing here) and anchors."""
+def write_train_data(root, n_train=N_TRAIN):
+    """`n_train` train (64) and 16 valid 640x640 JPEGs with 2-6 filled
+    boxes each and YOLO labels over 80 classes (every class present), plus
+    temp copies of the shipped config (data_path pointing here) and
+    anchors."""
     import yaml
     from PIL import Image
 
     rng = np.random.default_rng(SEED)
     box_id = 0
-    for split, n in (("train", N_TRAIN), ("valid", N_VALID)):
+    for split, n in (("train", n_train), ("valid", N_VALID)):
         d = os.path.join(root, "data", split)
         os.makedirs(d)
         for i in range(n):
@@ -1358,7 +1383,7 @@ def reference_batchnorm(config, anchors, batch):
     return err
 
 
-def card_vs_cpu_step(config, anchors, task="detection", limits=None):
+def card_vs_cpu_step(config, anchors, task="detection", limits=None, label=None):
     """One seeded net, one batch of 2: the step on the card in f32 and in
     bf16 against the CPU f32 step (`limits`, TRAIN_LIMITS by default). The
     CPU's own bf16 step is measured beside them: how far bf16 alone moves
@@ -1366,10 +1391,11 @@ def card_vs_cpu_step(config, anchors, task="detection", limits=None):
     a train-mode BatchNorm only rounding noise: both are left out of the
     cosines. A keypoint net's kp_loss, kpv_loss and kpc_loss are held as
     its loss is: by the loss's relative limit, or, where `limits` gives the
-    bf16 step none, by their ratio to the CPU's bf16 step."""
+    bf16 step none, by their ratio to the CPU's bf16 step. `label` names
+    the printed lines."""
     limits = limits or TRAIN_LIMITS
-    tag_ = ("seg train" if task == "segmentation"
-            else "kp train" if config["model_config"].get("num_keypoints") else "train")
+    tag_ = label or ("seg train" if task == "segmentation"
+                     else "kp train" if config["model_config"].get("num_keypoints") else "train")
     cpu = seeded_net(config, anchors, task=task)
     state = {k: v.clone() for k, v in cpu.state_dict().items()}
     batch = train_batch(config, 2, task)
@@ -1539,9 +1565,10 @@ def eval_phase(root, learned, task="detection"):
     """The eval CLI of `task` (eval_det for "detection" and "keypoints",
     eval_seg) on best_model/ over the
     valid images and on a learning phase's net over the images it learned
-    (`learned`: checkpoint, data dir), each on the card (counters zeroed
-    before and read after) and on the CPU: the JAX CLI's keys, its metrics
-    card vs CPU within their limits, the learned net's above 0."""
+    (`learned`: checkpoint, data dir; None: best_model/ only), each on the
+    card (counters zeroed before and read after) and on the CPU: the JAX
+    CLI's keys, its metrics card vs CPU within their limits, the learned
+    net's above 0."""
     import contextlib
     import io
 
@@ -1556,8 +1583,9 @@ def eval_phase(root, learned, task="detection"):
     model, folder = (("SegmentationNet", task) if task == "segmentation"
                      else ("DetectionNet", "detection"))
     runs = {"best_model": (os.path.join(root, f"saved_model/{folder}/best_model/{model}.ckpt.tar"),
-                           os.path.join(root, "data", "valid")),
-            "learned": learned}
+                           os.path.join(root, "data", "valid"))}
+    if learned:
+        runs["learned"] = learned
     res = {}
     for tag, (weights, data_dir) in runs.items():
         out, seconds = {}, {}
@@ -2762,7 +2790,8 @@ def int8_label(config, task):
     return "int8 kp serve" if config["model_config"].get("num_keypoints") else "int8 serve"
 
 
-def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=None):
+def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=None,
+                        label=None, limits=None):
     """One batch: the card calibrates and quantizes (bf16 activations), the
     CPU reference takes the card's q parameters; decoded predictions (and
     seg protos) card vs CPU, the calibration absmax gap, and the int8
@@ -2772,7 +2801,7 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
     from vision_conglomerate_torch.nn.quantize import collect_calibration
 
     seg = task == "segmentation"
-    label = int8_label(config, task)
+    label = label or int8_label(config, task)
     mc = config["model_config"]
     img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
     ds = InferenceImgDataset(img_dir, img_wh=img_wh)
@@ -2795,7 +2824,7 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
     groups = {"logits": slice(0, 1 + c), "boxes": slice(1 + c, 5 + c)}
     if seg:
         groups["coefs"] = slice(5 + c, None)
-    limits = INT8_SEG_MODEL_LIMITS if seg else INT8_MODEL_LIMITS
+    limits = limits or (INT8_SEG_MODEL_LIMITS if seg else INT8_MODEL_LIMITS)
     stats = {g: held(label, g, got[..., sl], want[..., sl], limits[g]) for g, sl in groups.items()}
     if gpu.num_keypoints:
         for g, got_f, want_f in zip(("kp_xy", "kp_vis"), kp_fields(got, c), kp_fields(want, c)):
@@ -2822,16 +2851,18 @@ def int8_compare_models(config, ckpt, img_dir, task, bf16_fwd_ms, profile_path=N
 
 
 def int8_serve_phase(root, config, ckpt, img_dirs, bf16_fwd_ms, task="detection",
-                     profile_path=None):
+                     profile_path=None, label=None, limits=None, measure_warm=True):
     """The checkpoint served in int8 through run_detection_inference on the
     card (counters zeroed before, read after: each s8 kernel must launch,
     its launches a batch times the batches; the first batch's calibration
-    runs the bf16 deploy form once), warm images/s in int8, and the card
-    against the CPU (`int8_compare_models`). Returns the results and the
-    int8 conv shapes of one batch."""
+    runs the bf16 deploy form once), warm images/s in int8 (with
+    `measure_warm`),
+    and the card against the CPU (`int8_compare_models`, within `limits`).
+    `label` names the printed lines (default by task). Returns the results
+    and the int8 conv shapes of one batch."""
     seg = task == "segmentation"
-    label = int8_label(config, task)
-    tag = {"int8 serve": "int8", "int8 seg serve": "int8_seg", "int8 kp serve": "int8_kp"}[label]
+    label = label or int8_label(config, task)
+    tag = label.replace(" serve", "").replace(" ", "_")
     zero_counters()
     with recording_kernel_shapes() as run_seen:
         seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, f"{tag}_out"),
@@ -2856,7 +2887,7 @@ def int8_serve_phase(root, config, ckpt, img_dirs, bf16_fwd_ms, task="detection"
     check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
           f"{label} outputs missing: {files}")
     warm = t_few = t_many = None
-    if not seg:  # seg serving is host-bound (mask handling): its warm rate is phase 11's
+    if measure_warm and not seg:  # seg serving is host-bound (mask handling): phase 11
         t_few, _ = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, f"{tag}_few"),
                          task, "int8")
         t_many, _ = serve(config, ckpt, img_dirs[WARM_IMAGES], os.path.join(root, f"{tag}_many"),
@@ -2865,7 +2896,7 @@ def int8_serve_phase(root, config, ckpt, img_dirs, bf16_fwd_ms, task="detection"
         print(f"{label}: warm end to end {warm:.3f} images/s in int8 = {WARM_IMAGES - N_IMAGES} "
               f"images / ({t_many:.3f} s - {t_few:.3f} s) (host clock)")
     stats, fwd_ms = int8_compare_models(config, ckpt, img_dirs[N_IMAGES], task, bf16_fwd_ms,
-                                        profile_path)
+                                        profile_path, label, limits)
     one_batch = int8_seen[:sum(per_batch.values())]
     return dict(first_call_seconds=seconds, launches=s8, bf16_launches=bf16,
                 launches_per_batch=per_batch, warm_images_per_s=warm,
@@ -3260,6 +3291,213 @@ def kp_train_phase(root):
                 fixed_batch_step_ms=fixed_ms, eval=evaluated)
 
 
+# The detector's alternate components (phases 33-37): two nets, each
+# configs/detection/config.yaml as shipped with the named keys changed (a
+# dict updates its block), written as a config file the way a user selects
+# them; 640x640, 80 classes, the shipped anchors
+ALT_NETS = {
+    "resnet_basichead": {"backbone": "ResNetBackBone", "head": "BasicHead",
+                         "repbipan_config": {"upsample_mode": "bilinear"}},
+    "csp_s2d": {"cspbackbone_config": {"space_to_depth_stem": True, "early_min_channels": 64}},
+}
+# card bf16 vs CPU f32 decoded predictions of one serve batch, (max, mean)
+# |card - cpu| per field group, about 3x the first reading on an H100
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): resnet_basichead logits
+# 1.51e-3 and 1.88e-4, boxes 0.123 and 5.43e-3 px; csp_s2d logits 1.23e-3
+# and 1.73e-4, boxes 0.0909 and 3.71e-3 px
+ALT_MODEL_LIMITS = {"resnet_basichead": {"logits": (4.5e-3, 5.6e-4), "boxes": (0.37, 0.016)},
+                    "csp_s2d": {"logits": (3.7e-3, 5.2e-4), "boxes": (0.27, 0.011)}}
+# card int8 vs CPU int8 (the card's q parameters on both sides), about 3x
+# the first reading: resnet_basichead logits 2.21e-3 and 2.66e-4, boxes
+# 0.196 and 7.15e-3 px; csp_s2d logits 1.60e-3 and 2.15e-4, boxes 0.126 and
+# 4.57e-3 px
+ALT_INT8_LIMITS = {"resnet_basichead": {"logits": (6.6e-3, 8e-4), "boxes": (0.59, 0.021)},
+                   "csp_s2d": {"logits": (4.8e-3, 6.5e-4), "boxes": (0.38, 0.014)}}
+# one train step of each on 2 images against the CPU f32 step is held to
+# phase 6's TRAIN_LIMITS; first readings (NVIDIA H100 80GB HBM3, 700.00 W):
+# f32 loss rel 1.26e-7 and 0, 1 - lowest cosine 2.10e-5 and 8.7e-9,
+# BatchNorm 2.98e-6 and 7.39e-6; bf16 gradient ratios to the CPU's bf16
+# step 0.874-1.093 and 1.331-1.568
+ALT_TRAIN_STEPS = 2  # steps an epoch of the alternate train CLI run (32 images)
+# the serve-fast decode against the runner's decode + postprocess on one
+# batch, max |d| of the kept rows (sorted), set before the first reading:
+# scores and boxes (the same decode, rescale and postprocess on the same
+# bf16 head outputs, repacked from the raw fields; a few f32 ulps of
+# 1280 px at most)
+FAST_LIMITS = {"scores": 1e-6, "boxes": 1e-3}
+
+
+def alt_config(name):
+    """The shipped detection config with ALT_NETS[name]'s keys changed."""
+    from vision_conglomerate_torch.utils import load_yaml
+
+    config = load_yaml(os.path.join(REPO, "configs", "detection", "config.yaml"))
+    mc = config["model_config"]
+    for key, val in ALT_NETS[name].items():
+        mc[key] = {**mc[key], **val} if isinstance(val, dict) else val
+    return config
+
+
+def write_alt(root, name):
+    """The alternate net's config file and a checkpoint of a DetectionNet
+    built from it with weights and non-trivial BatchNorm state from SEED
+    (JAX format); returns (config as read back from the file, checkpoint,
+    the train-form net on the CPU)."""
+    from vision_conglomerate_torch.models import DetectionNet
+    from vision_conglomerate_torch.nn.blocks import init_weights_, randomize_batchnorm_
+    from vision_conglomerate_torch.train.checkpoint import save_checkpoint
+    from vision_conglomerate_torch.utils import load_yaml, save_yaml
+    from vision_conglomerate_torch.weights import state_dict_to_flax
+
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    save_yaml(alt_config(name), os.path.join(d, "config.yaml"))
+    config = load_yaml(os.path.join(d, "config.yaml"))
+    g = torch.Generator().manual_seed(SEED)
+    net = DetectionNet(NUM_CLASSES, config["model_config"], anchors=shipped_anchors("detection"),
+                       device="cpu")
+    randomize_batchnorm_(init_weights_(net, g), g)
+    ckpt = os.path.join(d, "DetectionNet.ckpt.tar")
+    save_checkpoint(ckpt, {"LAST_EPOCH": 0, "NUM_CLASSES": NUM_CLASSES,
+                           "NETWORK_PARAMS": state_dict_to_flax(net.state_dict())})
+    return config, ckpt, net
+
+
+def alt_serve_phase(root, img_dirs, name, det_fwd_ms):
+    """An alternate net served through run_detection_inference on the card
+    (counters zeroed before, read after: each kernel's launches a batch, as
+    the forward hook records them, times the batches), and the card
+    against the CPU on one batch (ALT_MODEL_LIMITS)."""
+    config, ckpt, net = write_alt(root, name)
+    zero_counters()
+    seconds, served = serve(config, ckpt, img_dirs[N_IMAGES], os.path.join(root, f"{name}_out"))
+    launches = read_counters()
+    files = sorted(os.listdir(served))
+    check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
+          f"{name} serve outputs missing: {files}")
+    seen, stats, fwd_ms, host, _ = compare_models(config, ckpt, img_dirs[N_IMAGES],
+                                                  ALT_MODEL_LIMITS[name], f"{name} serve")
+    n_batches = -(-N_IMAGES // BATCH)
+    per_batch = {route: sum(1 for s_ in seen if s_[0] == route) for route in launches}
+    print(f"{name} serve: {N_IMAGES} images 1280x720 at batch {BATCH} through "
+          f"run_detection_inference ({ALT_NETS[name]}) in {seconds:.2f} s (first call); "
+          f"launches {launches}, a batch {per_batch}; forward + decode {fwd_ms:.3f} ms/batch, "
+          f"the shipped detector's {det_fwd_ms:.3f} (host clock, synchronized)")
+    for route, n in launches.items():
+        check(n > 0 and n == n_batches * per_batch[route],
+              f"{name} {route}: {n} launches in {n_batches} batches, the forward routes "
+              f"{per_batch[route]}")
+    return dict(first_call_seconds=seconds, launches=launches, launches_per_batch=per_batch,
+                forward_ms_per_batch=fwd_ms, host=host, model_vs_cpu=stats), seen, \
+        (config, ckpt, net)
+
+
+def kept_rows(res, i):
+    """Image i's kept rows [score, class, x1, y1, x2, y2], sorted by score,
+    then class and box: the order of equal scores aside."""
+    v = res.valid[i].cpu()
+    rows = torch.cat([res.scores[i].cpu()[v, None].double(),
+                      res.classes[i].cpu()[v, None].double(),
+                      res.boxes_xyxy[i].cpu()[v].double()], dim=1).numpy()
+    return rows[np.lexsort(tuple(rows[:, j] for j in range(5, 0, -1)) + (-rows[:, 0],))]
+
+
+def serve_fast_phase(config, ckpt, img_dir):
+    """ops.serve_decode.decode_and_postprocess on the card on one serve
+    batch's raw fields (the deploy form, bf16) against the runner's decode
+    and postprocess_detections at the runner's settings: the same kept rows
+    in every image, up to the order of equal scores (FAST_LIMITS). The
+    decode is the runner's own; what this holds is the heads' raw-field
+    maps and their repacking per anchor on the card."""
+    from vision_conglomerate_torch.data.inference import InferenceImgDataset
+    from vision_conglomerate_torch.infer.runner import load_detection_model
+    from vision_conglomerate_torch.ops.postprocess import postprocess_detections
+    from vision_conglomerate_torch.ops.serve_decode import decode_and_postprocess
+
+    img_wh = tuple(config["train_config"]["img_config"]["img_wh"])
+    ds = InferenceImgDataset(img_dir, img_wh=img_wh)
+    items = [ds[i] for i in range(BATCH)]
+    og_hw = tuple(items[0][1].shape[:2])
+    x = torch.from_numpy(np.stack([a for a, _ in items])).cuda().permute(0, 3, 1, 2)
+    model, c = load_detection_model(ckpt, config["model_config"], device="cuda")
+    kw = dict(iou_threshold=0.35, score_threshold=0.01, box_allowance=4.0, max_detections=300)
+
+    @torch.no_grad()
+    def fast():
+        return decode_and_postprocess(model(x, raw_fields=True), tuple(x.shape[2:]), c,
+                                      og_size=og_hw, **kw)
+
+    @torch.no_grad()
+    def runner():
+        return postprocess_detections(model(x, inference=True, og_size=og_hw), c, **kw)
+
+    got, want = fast(), runner()
+    torch.cuda.synchronize()
+    kept, tied, worst = [], [], {"scores": 0.0, "boxes": 0.0}
+    for i in range(BATCH):
+        g, w = kept_rows(got, i), kept_rows(want, i)
+        kept.append(len(w))
+        check(len(g) == len(w) > 0, f"serve-fast image {i}: {len(g)} kept rows, the runner's "
+                                    f"{len(w)}")
+        worst["scores"] = max(worst["scores"], float(np.abs(g[:, 0] - w[:, 0]).max()))
+        # rows at the lowest kept score may differ where max_detections cuts
+        # through equal scores, which the two candidate orders rank apart
+        floor = min(g[:, 0].min(), w[:, 0].min()) + FAST_LIMITS["scores"]
+        g, w = g[g[:, 0] > floor], w[w[:, 0] > floor]
+        tied.append(kept[-1] - len(w))
+        check(len(g) == len(w) and np.array_equal(g[:, 1], w[:, 1]),
+              f"serve-fast image {i}: the rows above the lowest kept score differ in number or "
+              f"class")
+        if len(w):
+            worst["boxes"] = max(worst["boxes"], float(np.abs(g[:, 2:] - w[:, 2:]).max()))
+    print(f"serve-fast: decode_and_postprocess on the card vs the runner's decode + "
+          f"postprocess, batch {BATCH}: kept rows {kept} on both ({tied} at the lowest kept "
+          f"score, compared by count and score only); max |d| scores "
+          f"{worst['scores']:.3g} (limit {FAST_LIMITS['scores']:g}), boxes {worst['boxes']:.3g} px "
+          f"(limit {FAST_LIMITS['boxes']:g})")
+    for key, lim in FAST_LIMITS.items():
+        check(worst[key] <= lim, f"serve-fast {key} differ from the runner's by {worst[key]:.3g}")
+    return dict(kept_rows=kept, tied_at_lowest=tied, max_abs_err=worst)
+
+
+def alt_train_phase(root):
+    """train_det.run (--map_eval, ALT_TRAIN_STEPS steps an epoch) on the
+    resnet_basichead config over phase 5's synthetic data (its first 32
+    train images): its artifacts,
+    the saved config keeping the alternate keys; one step card vs CPU of
+    both alternate nets (phase 6's TRAIN_LIMITS, shipped anchors); eval_det on
+    the trained best_model/, card and CPU (eval_phase)."""
+    import yaml
+
+    base, config_path, anchors_path = write_train_data(root, ALT_TRAIN_STEPS * TRAIN_BATCH)
+    configs = {}
+    for name in ALT_NETS:
+        configs[name] = alt_config(name)
+        configs[name]["train_config"] = base["train_config"]
+    config = configs["resnet_basichead"]
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    pipe, seconds, peak = run_train_cli(root, config, config_path, anchors_path)
+    check_train_artifacts(root, pipe)
+    with open(os.path.join(root, "saved_model/detection/best_model/config/config.yaml")) as f:
+        saved = yaml.safe_load(f)["model_config"]
+    for key in ("backbone", "head", "repbipan_config"):
+        check(saved[key] == config["model_config"][key],
+              f"resnet_basichead best_model/config/config.yaml {key}: {saved[key]!r}")
+    print(f"resnet_basichead train: train_det.run, {TRAIN_EPOCHS} epochs of {ALT_TRAIN_STEPS} "
+          f"steps at batch {TRAIN_BATCH}, 640x640, bf16: {seconds:.2f} s in all; peak memory "
+          f"allocated {peak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(m['aggregate_loss'], 4) for m in pipe._train_metrics]}; the saved config "
+          f"keeps backbone {saved['backbone']}, head {saved['head']}, upsample_mode "
+          f"{saved['repbipan_config']['upsample_mode']}")
+    del pipe
+    anchors = shipped_anchors("detection")
+    parity = {name: card_vs_cpu_step(cfg, anchors, label=f"{name} train")
+              for name, cfg in configs.items()}
+    evaluated = eval_phase(root, None)
+    return dict(cli_seconds=seconds, peak_bytes=peak, card_vs_cpu=parity, eval=evaluated)
+
+
 def _leaves(tree):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -3329,6 +3567,18 @@ def main():
             kp_video = kp_video_phase(root, clips[VIDEO_FRAMES], samples, kp)
             kp_int8_serve, kp_int8_seen = int8_serve_phase(
                 root, kp[0], kp[1], img_dirs, kp_serve["forward_ms_per_batch"])
+        with phase_clock("alternates serve, serve-fast decode, int8 (33, 34, 36; within the "
+                         "phases above)"):
+            alt_serve, alt_seen, alt = alt_serve_phase(root, img_dirs, "resnet_basichead", fwd_ms)
+            serve_fast = serve_fast_phase(alt[0], alt[1], img_dirs[N_IMAGES])
+            s2d_serve, s2d_seen, s2d = alt_serve_phase(root, img_dirs, "csp_s2d", fwd_ms)
+            alt_int8, alt_int8_seen = int8_serve_phase(
+                root, alt[0], alt[1], img_dirs, alt_serve["forward_ms_per_batch"],
+                label="resnet_basichead int8 serve", limits=ALT_INT8_LIMITS["resnet_basichead"],
+                measure_warm=False)
+            s2d_int8, s2d_int8_seen = int8_serve_phase(
+                root, s2d[0], s2d[1], img_dirs, s2d_serve["forward_ms_per_batch"],
+                label="csp_s2d int8 serve", limits=ALT_INT8_LIMITS["csp_s2d"], measure_warm=False)
     n_batches = -(-N_IMAGES // BATCH)
     for route, n in launches.items():
         per_batch = sum(1 for s in seen if s[0] == route)
@@ -3348,12 +3598,16 @@ def main():
         tn_adv_train = tn_train_phase(root, out_dir, args.profile, TN_ADV)
     with tempfile.TemporaryDirectory() as root, phase_clock("kp train, kp eval (29-30, 32)"):
         kp_train = kp_train_phase(root)
+    with tempfile.TemporaryDirectory() as root, phase_clock("alternates train, eval (35, 37)"):
+        alt_train = alt_train_phase(root)
     with phase_clock("kernels (3)"):
         rows, summary = kernel_phase({
             "serve": (seen, launches), "seg_serve": (seg_seen, seg_serve["launches"]),
             "tracknet_serve": (tn_seen, tn_serve_res["launches"]),
             "tracknet_adv_serve": (tn_adv_seen, tn_adv_serve["launches"]),
-            "kp_serve": (kp_seen, kp_serve["launches"])},
+            "kp_serve": (kp_seen, kp_serve["launches"]),
+            "alt_serve": (alt_seen, alt_serve["launches"]),
+            "s2d_serve": (s2d_seen, s2d_serve["launches"])},
             {**tn_extra, **tn_adv_extra})
         big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
     with phase_clock("s8 kernels (27)"):
@@ -3367,7 +3621,9 @@ def main():
             "int8_seg_serve": (int8_seg_seen, s8_launches(int8_seg_serve)),
             "tracknet_int8_serve": (tn_int8.pop("one_batch"), s8_launches(tn_int8)),
             "tracknet_adv_int8_serve": (tn_adv_int8.pop("one_batch"), s8_launches(tn_adv_int8)),
-            "kp_int8_serve": (kp_int8_seen, s8_launches(kp_int8_serve))},
+            "kp_int8_serve": (kp_int8_seen, s8_launches(kp_int8_serve)),
+            "alt_int8_serve": (alt_int8_seen, s8_launches(alt_int8)),
+            "s2d_int8_serve": (s2d_int8_seen, s8_launches(s2d_int8))},
             {**tn_int8.pop("extra"), **tn_adv_int8.pop("extra")}, S8_KERNELS, run_s8_case,
             S8_RAGGED, main="int8_serve")
     summary += s8_summary
@@ -3386,7 +3642,9 @@ def main():
                        tracknet_adv_train=tn_adv_train, tracknet_dec13_big=big, cases=rows,
                        int8_serve=int8_serve, int8_seg_serve=int8_seg_serve, s8_cases=s8_rows,
                        kp_serve=kp_serve, kp_video=kp_video, kp_int8_serve=kp_int8_serve,
-                       kp_train=kp_train, kernels=summary), f, indent=1,
+                       kp_train=kp_train, alt_serve=alt_serve, s2d_serve=s2d_serve,
+                       serve_fast=serve_fast, alt_int8_serve=alt_int8, s2d_int8_serve=s2d_int8,
+                       alt_train=alt_train, kernels=summary), f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))
     print(f"card: {card}")

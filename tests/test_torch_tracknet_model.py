@@ -261,14 +261,15 @@ def test_deploy_form_routes_every_conv_to_conv3x3(monkeypatch):
 
 def test_advanced_architecture_raises():
     """The advanced architecture is ported (tests/test_torch_tracknet_adv_model.py);
-    it raises for a module the port does not hold yet, with its ROADMAP
-    item, and for an unknown one; an unknown architecture raises."""
+    as in the JAX package it raises KeyError for a name that
+    TRACKNET_MODULES does not hold (ResNetBackBone is a detection backbone
+    only) and for an unknown one; an unknown architecture raises."""
     def advanced(first):
         return {**CONFIG, "architecture": "advanced", "advanced_arch_config": {
             "encoder_modules": [first, "RepBiPAN"],
             "decoder_modules": ["DeconvRepBiPAN", "DeconvCSPNet"]}}
 
-    with pytest.raises(NotImplementedError, match="§A.13"):
+    with pytest.raises(KeyError):
         TrackNet(advanced("ResNetBackBone"))
     with pytest.raises(KeyError):
         TrackNet(advanced("VGG"))

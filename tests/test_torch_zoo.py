@@ -4,8 +4,8 @@ SPPFModule (its [y, p2, p2, p3] concat), ConvBNormUpsample,
 ConvTransposeBNorm with its weight bridge (the spatial flip) and its
 BatchNorm fold, the out-channels functions of BiPAN, DeconvBiPAN,
 RepBiPAN, DeconvRepBiPAN and DeconvCSPNet, DeconvRepBiPAN with BiC convs,
-a DetectionNet with a BiPAN neck, the registry's tables and the raises of
-the names still to port.
+a DetectionNet with a BiPAN neck, and the registry's tables (equal to the
+JAX package's).
 
 Weights come from seeded port modules (non-trivial BatchNorm state)
 bridged with `weights.state_dict_to_flax`; inputs are made with numpy from
@@ -250,20 +250,28 @@ def test_detection_net_with_a_bipan_neck_matches_jax():
 
 
 def test_registry_tables_match_jax():
-    assert sorted(registry.TRACKNET_MODULES) == sorted(jax_registry.TRACKNET_MODULES)
-    assert sorted(registry.NECKS) == sorted(jax_registry.NECKS)
-    assert registry.NOT_PORTED == {"ResNetBackBone", "BasicHead"}
-    jax_names = set(jax_registry.BACKBONES) | set(jax_registry.NECKS) | set(jax_registry.HEADS)
-    port_names = set(registry.BACKBONES) | set(registry.NECKS) | set(registry.HEADS)
-    assert port_names | registry.NOT_PORTED == jax_names
+    """The port's registry tables equal the JAX package's, name for name,
+    and every TrackNet module carries its out-channels function."""
+    for table in ("BACKBONES", "NECKS", "HEADS", "TRACKNET_MODULES"):
+        assert sorted(getattr(registry, table)) == sorted(getattr(jax_registry, table)), table
     for name, spec in registry.TRACKNET_MODULES.items():
         assert spec.cls.__name__ == name and spec.out_channels is not None
 
 
-@pytest.mark.parametrize("name", sorted(registry.NOT_PORTED))
+@pytest.mark.parametrize("name", ["BasicHead", "ResNetBackBone"])
 def test_not_ported_names_raise_with_their_roadmap_item(name):
-    for table in (registry.BACKBONES, registry.HEADS, registry.TRACKNET_MODULES):
-        with pytest.raises(NotImplementedError, match="§A.13"):
+    """The two names that raised NotImplementedError until they were
+    ported now resolve in their tables and build; as in the JAX package,
+    TRACKNET_MODULES does not hold them and raises KeyError, as it does
+    for an unknown name."""
+    table = registry.BACKBONES if name == "ResNetBackBone" else registry.HEADS
+    spec = registry.resolve(table, name)
+    assert spec.cls.__name__ == name and name in (jax_registry.BACKBONES if table is
+                                                  registry.BACKBONES else jax_registry.HEADS)
+    module = spec.cls(3) if name == "ResNetBackBone" else spec.cls(16, 2)
+    assert sum(p.numel() for p in module.parameters()) > 0
+    for table in (registry.TRACKNET_MODULES, registry.NECKS):
+        with pytest.raises(KeyError):
             registry.resolve(table, name)
     with pytest.raises(KeyError):
         registry.resolve(registry.TRACKNET_MODULES, "NoSuchModule")

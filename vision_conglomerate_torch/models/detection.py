@@ -113,6 +113,11 @@ class DetectionNet(nn.Module):
     (`config["protos_config"]`) runs on n3, and forward returns
     (preds, protos), the protos NCHW (N, K, H/4, W/4). `num_keypoints`
     adds the heads' keypoint branch.
+
+    `raw_fields=True` skips the decode and returns ({"sm", "md", "lg"
+    anchors}, the three heads' field dicts: NCHW maps by field, or
+    BasicHead's {"packed": ...}) (with the protos for segmentation), the
+    input of `ops.serve_decode.decode_and_postprocess`.
     """
 
     with_proto_seg = False
@@ -139,33 +144,43 @@ class DetectionNet(nn.Module):
         head_spec = registry.resolve(registry.HEADS, config["head"])
         head_cfg = registry.component_config(config, config["head"])
         # model_config.remat reaches the backbone and neck unless their own
-        # config sets it, as in the JAX package
-        if config.get("remat"):
-            bb_cfg.setdefault("remat", True)
-            neck_cfg.setdefault("remat", True)
-        kw = dict(folded=folded, device=device)
-        self.backbone = bb_spec.cls(3, **bb_cfg, **kw)
+        # config sets it, and only those that have it (not ResNetBackBone),
+        # as in the JAX package
+        for spec, cfg in ((bb_spec, bb_cfg), (neck_spec, neck_cfg)):
+            if config.get("remat") and registry.takes(spec.cls, "remat"):
+                cfg.setdefault("remat", True)
+
+        def kw(cls):  # `folded` only for modules with ConvBNorms to fold
+            return dict(device=device, **({"folded": folded} if registry.takes(cls, "folded")
+                                          else {}))
+
+        self.backbone = bb_spec.cls(3, **bb_cfg, **kw(bb_spec.cls))
         bb_out = bb_spec.out_channels(**bb_cfg)
         if registry.takes(neck_spec.cls, "deploy"):
             neck_cfg["deploy"] = deploy
-        self.neck = neck_spec.cls(bb_out, **neck_cfg, **kw)
+        self.neck = neck_spec.cls(bb_out, **neck_cfg, **kw(neck_spec.cls))
         neck_out = neck_spec.out_channels(bb_out, **neck_cfg)
         self.head = nn.ModuleList([
             head_spec.cls(c, num_classes, num_anchors=self.num_anchors,
                           num_masks=self.num_masks or None, num_keypoints=num_keypoints,
-                          **head_cfg, **kw)
+                          **head_cfg, **kw(head_spec.cls))
             for c in neck_out[1:]])
         if self.with_proto_seg:
             self.proto_seg_module = ProtoSegModule(
-                neck_out[1], self.num_masks, **dict(config.get("protos_config") or {}), **kw)
+                neck_out[1], self.num_masks, **dict(config.get("protos_config") or {}),
+                **kw(ProtoSegModule))
 
     def forward(self, x: torch.Tensor, inference: bool = False,
-                og_size: Optional[Tuple[int, int]] = None):
+                og_size: Optional[Tuple[int, int]] = None, raw_fields: bool = False):
         x = x.to(self.dtype)
         _, n3, n4, n5 = self.neck(self.backbone(x))
-        heads_out = [head(fm) for head, fm in zip(self.head, (n3, n4, n5))]
+        heads_out = [head(fm, raw_fields=raw_fields) for head, fm in zip(self.head, (n3, n4, n5))]
         input_shape = (x.shape[2], x.shape[3])
         anchors = (self.sm_anchors, self.md_anchors, self.lg_anchors)
+        if raw_fields:
+            raw = ({"sm": self.sm_anchors, "md": self.md_anchors, "lg": self.lg_anchors},
+                   heads_out)
+            return (raw, self.proto_seg_module(n3)) if self.with_proto_seg else raw
         preds = [decode_scale(p, a, input_shape, self.num_classes, self.num_masks,
                               self.num_keypoints or 0, inference)
                  for p, a in zip(heads_out, anchors)]

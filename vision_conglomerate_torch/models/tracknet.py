@@ -119,7 +119,7 @@ class BaseTrackNetDecoder(nn.Module):
             return stage(getattr(self, name), t, remat=self.remat)
 
         def up_cat(t, skip):
-            return torch.cat([resize_nchw(t, 2.0, "nearest"), skip], dim=1)
+            return torch.cat([resize_nchw(t, 2.0, method="nearest"), skip], dim=1)
 
         x = up_cat(fmaps[3], fmaps[2])
         x = conv("dec_4", conv("dec_3", conv("dec_2", x)))

@@ -342,7 +342,7 @@ class ConvBNormUpsample(nn.Module):
                               no_batchnorm=no_batchnorm, folded=folded, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return resize_nchw(self.conv(x), self.scale, self.upsample_mode)
+        return resize_nchw(self.conv(x), self.scale, method=self.upsample_mode)
 
 
 class RepVGGBlock(nn.Module):
@@ -438,8 +438,8 @@ class BiCwithConvModule(nn.Module):
 
     def forward(self, c1, c0, p2):
         c1 = self.conv_c1(c1)
-        c0 = resize_nchw(self.conv_c0(c0), 0.5, self.upsample_mode)
-        p2 = resize_nchw(p2, 2.0, self.upsample_mode)
+        c0 = resize_nchw(self.conv_c0(c0), 0.5, method=self.upsample_mode)
+        p2 = resize_nchw(p2, 2.0, method=self.upsample_mode)
         return self.conv_out(torch.cat([c1, c0, p2], dim=1))
 
 
@@ -455,8 +455,8 @@ class BiCwithNoConvModule(nn.Module):
             self.conv = ConvBNorm(c1 + c0 + p2, out_channels, 1, folded=folded, device=device)
 
     def forward(self, c1, c0, p2):
-        c0 = resize_nchw(c0, 0.5, self.upsample_mode)
-        p2 = resize_nchw(p2, 2.0, self.upsample_mode)
+        c0 = resize_nchw(c0, 0.5, method=self.upsample_mode)
+        p2 = resize_nchw(p2, 2.0, method=self.upsample_mode)
         out = torch.cat([c1, c0, p2], dim=1)
         if hasattr(self, "conv"):
             out = self.conv(out)
@@ -572,7 +572,7 @@ class ProtoSegModule(nn.Module):
         self.conv3 = ConvBNorm(c_h, out_channels, 1, folded=folded, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = resize_nchw(self.conv1(x), 2.0, self.upsample_mode)
+        out = resize_nchw(self.conv1(x), 2.0, method=self.upsample_mode)
         return self.conv3(self.conv2(out))
 
 
@@ -587,6 +587,9 @@ class EffiDecHead(nn.Module):
     The mask branch is `masks_fmap_depth` 3x3 ConvBNorms over the stem and
     a 1x1 `masks_layer`; the keypoint branch likewise
     `keypoints_fmap_depth` of them and a 1x1 `keypoints_layer`.
+    `raw_fields=True` returns the 1x1 layers' NCHW maps by field ("conf",
+    "cls", "bbox", "masks", "keypoints"; A * D channels each, channel a * D
+    + d) for `ops.serve_decode`.
     """
 
     def __init__(self, in_channels: int, num_classes: int, num_anchors: int = 3,
@@ -624,25 +627,54 @@ class EffiDecHead(nn.Module):
             self.keypoints_layer = nn.Conv2d(stem_out, num_anchors * 5 * self.num_keypoints, 1,
                                              device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, raw_fields: bool = False):
         n, _, ny, nx = x.shape
         stem = self.stem_layer(x)
         reg = self.regression_fmap_layer(stem)
         cls_f = self.classification_fmap_layer(stem)
-
-        def per_anchor(t, last_dim):
-            return t.permute(0, 2, 3, 1).reshape(n, ny, nx, self.num_anchors, last_dim)
-
-        parts = [per_anchor(conv2d(reg, self.conf_layer), 1),
-                 per_anchor(conv2d(cls_f, self.cls_layer), self.num_classes),
-                 per_anchor(conv2d(reg, self.bbox_layer), 4)]
+        fields = {"conf": conv2d(reg, self.conf_layer), "cls": conv2d(cls_f, self.cls_layer),
+                  "bbox": conv2d(reg, self.bbox_layer)}
         if self.num_masks:
-            masks = conv2d(self.mask_fmap_layer(stem), self.masks_layer)
-            parts.append(per_anchor(masks, self.num_masks))
+            fields["masks"] = conv2d(self.mask_fmap_layer(stem), self.masks_layer)
         if self.num_keypoints:
-            kp = conv2d(self.keypoints_fmap_layer(stem), self.keypoints_layer)
-            parts.append(per_anchor(kp, 5 * self.num_keypoints))
-        return torch.cat(parts, dim=-1)
+            fields["keypoints"] = conv2d(self.keypoints_fmap_layer(stem), self.keypoints_layer)
+        if raw_fields:
+            return fields
+        dims = {"conf": 1, "cls": self.num_classes, "bbox": 4, "masks": self.num_masks,
+                "keypoints": 5 * self.num_keypoints}
+        return torch.cat([t.permute(0, 2, 3, 1).reshape(n, ny, nx, self.num_anchors, dims[k])
+                          for k, t in fields.items()], dim=-1)
+
+
+class BasicHead(nn.Module):
+    """A 3x3 ConvBNorm `stem_layer` of round(cin * width_multiple) channels
+    (Python's half-to-even round), then a biased 1x1 `conv` to A * D, D = 5
+    + classes + masks + 5 * keypoints. Output (N, ny, nx, A, D): channel
+    a * D + d of the conv, the anchor-major [conf | cls | bbox | masks |
+    keypoints] packing of EffiDecHead's layout. `raw_fields=True` returns
+    {"packed": the conv's NCHW map}. Folded, `stem_layer` runs on the
+    conv3x3 kernel; `conv` is a plain conv in every form, as EffiDecHead's
+    1x1 layers are."""
+
+    def __init__(self, in_channels: int, num_classes: int, num_anchors: int = 3,
+                 num_masks: Optional[int] = None, num_keypoints: Optional[int] = None,
+                 width_multiple: float = 1.0, folded: bool = False, device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        self.num_masks = num_masks or 0
+        self.num_keypoints = num_keypoints or 0
+        stem_out = max(round(in_channels * width_multiple), 1)
+        dim = 5 + num_classes + self.num_masks + 5 * self.num_keypoints
+        self.stem_layer = ConvBNorm(in_channels, stem_out, 3, 1, folded=folded, device=device)
+        self.conv = nn.Conv2d(stem_out, num_anchors * dim, 1, device=device)
+
+    def forward(self, x: torch.Tensor, raw_fields: bool = False):
+        n, _, ny, nx = x.shape
+        out = conv2d(self.stem_layer(x), self.conv)
+        if raw_fields:
+            return {"packed": out}
+        return out.permute(0, 2, 3, 1).reshape(n, ny, nx, self.num_anchors, -1)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -13,6 +13,8 @@ instead of flax (params, batch_stats) trees:
   kernel and the identity are zero-padded to 3x3. The result loads into
   modules built with `deploy=True`.
 - `deploy_transform`: both, in that order.
+- `s2d_stem_kernel`: a 6x6/s2/p2 stem weight rearranged into the 3x3/s1/p1
+  weight over space-to-depth input (`nn.backbones.space_to_depth`).
 
 All arithmetic is f32 on the CPU; the returned tensors are new.
 """
@@ -39,6 +41,20 @@ def _fold(weight: torch.Tensor, bias, state: State, bn: str,
     shape = [1, 1, 1, 1]
     shape[out_dim] = -1
     return weight.float() * scale.view(shape), (bias.float() - mean) * scale + beta
+
+
+def s2d_stem_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(O, C, 6, 6) -> (O, 4C, 3, 3): the k6/s2/p2 conv over x equals the
+    k3/s1/p1 conv with this weight over space_to_depth(x). Tap (u, v) =
+    (2a + dy, 2b + dx) of channel c moves to tap (a, b) of channel
+    (dy * 2 + dx) * C + c; the padding band maps exactly."""
+    c = w.shape[1]
+    out = w.new_zeros((w.shape[0], 4 * c, 3, 3))
+    for dy in range(2):
+        for dx in range(2):
+            plane = (dy * 2 + dx) * c
+            out[:, plane:plane + c] = w[:, :, dy::2, dx::2]
+    return out
 
 
 def _key(prefix: str, rest: str) -> str:

@@ -1,10 +1,9 @@
 """Component registry: the config names of the detection nets and of
 TrackNet's advanced architecture.
 
-The YAML schema (`model_config.backbone: CSPBackBone`, ...) and the
-`<name.lower()>_config` convention are the JAX package's. The components
-the JAX package registers and the port does not hold yet (NOT_PORTED)
-raise with a pointer to ROADMAP §A.13.
+The YAML schema (`model_config.backbone: CSPBackBone`, ...), the
+`<name.lower()>_config` convention and the names of each table are the JAX
+package's; a name that is not in a table raises KeyError, as there.
 """
 import inspect
 from typing import Any, Callable, Dict, NamedTuple, Optional
@@ -18,13 +17,17 @@ class ComponentSpec(NamedTuple):
     out_channels: Optional[Callable] = None
 
 
+def _csp_out_channels(**cfg):
+    return backbones.cspnet_out_channels(cfg.get("width_multiple", 0.5),
+                                         cfg.get("early_min_channels"))
+
+
 BACKBONES: Dict[str, ComponentSpec] = {
-    "CSPBackBone": ComponentSpec(
-        backbones.CSPBackBone,
-        lambda **cfg: backbones.cspnet_out_channels(cfg.get("width_multiple", 0.5))),
-    "CSPNet": ComponentSpec(
-        backbones.CSPNet,
-        lambda **cfg: backbones.cspnet_out_channels(cfg.get("width_multiple", 0.5))),
+    "CSPBackBone": ComponentSpec(backbones.CSPBackBone, _csp_out_channels),
+    "CSPNet": ComponentSpec(backbones.CSPNet, _csp_out_channels),
+    "ResNetBackBone": ComponentSpec(
+        backbones.ResNetBackBone,
+        lambda **cfg: backbones.resnet_out_channels(cfg.get("block", "BasicBlock"))),
 }
 
 NECKS: Dict[str, ComponentSpec] = {
@@ -36,6 +39,7 @@ NECKS: Dict[str, ComponentSpec] = {
 
 HEADS: Dict[str, ComponentSpec] = {
     "EffiDecHead": ComponentSpec(blocks.EffiDecHead),
+    "BasicHead": ComponentSpec(blocks.BasicHead),
 }
 
 # The modules TrackNet's advanced architecture chains (two for the encoder,
@@ -46,8 +50,7 @@ HEADS: Dict[str, ComponentSpec] = {
 # out_channels; its function gives its stages' eight widths.
 TRACKNET_MODULES: Dict[str, ComponentSpec] = {
     "CSPNet": ComponentSpec(
-        backbones.CSPNet,
-        lambda in_channels, **cfg: backbones.cspnet_out_channels(cfg.get("width_multiple", 0.5))),
+        backbones.CSPNet, lambda in_channels, **cfg: _csp_out_channels(**cfg)),
     "RepBiPAN": NECKS["RepBiPAN"],
     "BiPAN": NECKS["BiPAN"],
     "DeconvRepBiPAN": NECKS["DeconvRepBiPAN"],
@@ -58,13 +61,9 @@ TRACKNET_MODULES: Dict[str, ComponentSpec] = {
             cfg.get("width_multiple", 0.5))),
 }
 
-# registered by the JAX package, not ported yet
-NOT_PORTED = frozenset({"ResNetBackBone", "BasicHead"})
-
-
 def takes(cls: Any, name: str) -> bool:
-    """Whether cls's constructor has a parameter `name` (`deploy`, `remat`:
-    a caller passes them only to the modules that have them)."""
+    """Whether cls's constructor has a parameter `name` (`deploy`, `remat`,
+    `folded`: a caller passes them only to the modules that have them)."""
     return name in inspect.signature(cls).parameters
 
 
@@ -74,10 +73,6 @@ def component_config(config: Dict[str, Any], name: str) -> Dict[str, Any]:
 
 
 def resolve(table: Dict[str, ComponentSpec], name: str) -> ComponentSpec:
-    if name in table:
-        return table[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"component {name!r} is not in the port yet (ROADMAP §A.13); "
-            f"ported: {sorted(table)}")
-    raise KeyError(f"Unknown component {name!r}; available: {sorted(table)}")
+    if name not in table:
+        raise KeyError(f"Unknown component {name!r}; available: {sorted(table)}")
+    return table[name]
