@@ -2,7 +2,8 @@
 """Drive the PyTorch port's detection (with its alternate components),
 keypoint detection, segmentation and TrackNet (base and advanced) paths on
 one NVIDIA GPU, in bf16 and in the int8 post-training-quantized serve form,
-and hold its CUDA kernels against their plain PyTorch versions.
+and data-parallel (`--use_ddp` under torchrun, `make_dp_serve`), and hold
+its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also writes torch.profiler tables
@@ -256,6 +257,28 @@ Phases (any failure exits non-zero; nothing is caught):
    warm rate): the s2d stem runs on the s8 conv kernel's element path.
 37. alternates eval: eval_det on the trained resnet_basichead best_model,
    card and CPU, as phase 9.
+38. ddp train: `torchrun --standalone --nproc_per_node 1 -m
+   vision_conglomerate_torch.train_det --use_ddp` (NCCL, a world of one,
+   through the code a world of many runs) at the shipped config on
+   DDP_TRAIN of phase 5's synthetic images, batch 16, 2 epochs, --map_eval:
+   finite losses in the CSVs, best_model/, a snapshot an epoch whose lr is
+   the config's times the world size. Then one bf16 step on 2 images in a
+   world of one against the plain step from one state (DDP_STEP_LIMITS:
+   bit for bit on an H100), and the step times at batch 16, plain and DDP in
+   turns.
+39. ddp serve: the DDP-trained best_model/ through run_detection_inference
+   on 8 images: both kernel counters must rise.
+40. make_dp_serve: the DDP-trained deploy-form net's serve (forward, decode,
+   NMS) wrapped by `parallel.serving.make_dp_serve` in a world of one
+   against the plain serve on one batch of 4 (DDP_SERVE_LIMITS); both
+   counters must rise.
+41. tracknet ddp: train_tracknet's main with --use_ddp in this process (a
+   world of one on a free local port) at the shipped TrackNet config on
+   phase 17's clips, batch 16, 2 epochs: finite losses, the artifacts, the
+   lr times the world size.
+decode_backend "native" has no phase: the H100 machine has g++ but not the
+libjpeg and libpng headers (jpeglib.h, png.h), so csrc/vct_data.cc cannot
+build there; the CPU tests hold it (tests/test_torch_native_decode.py).
 The kernel phase (3) runs last, over the shapes of the seven serve paths
 (TrackNet's, base and advanced: every shape its serve run launched, at
 batch 32, 8 and 6), and prints each kernel's sums per batch of each path
@@ -1508,7 +1531,7 @@ def profile_train(pipe, batch, step_ms, path):
     return dict(busy_ms=busy_ms, busy_share=busy_ms / step_ms, kernels_per_step=n_kernels)
 
 
-def serve_trained(root, config):
+def serve_trained(root, config, label="train"):
     """best_model/ through run_detection_inference on 8 valid images, with
     both kernel counters read around it."""
     from vision_conglomerate_torch.infer.runner import run_detection_inference
@@ -1529,7 +1552,7 @@ def serve_trained(root, config):
     torch.cuda.synchronize()
     launches = read_counters()
     files = sorted(os.listdir(out))
-    print(f"train: served the trained best_model on {N_IMAGES} images; launches {launches}")
+    print(f"{label}: served the trained best_model on {N_IMAGES} images; launches {launches}")
     for route, n in launches.items():
         check(n > 0, f"the {route} kernel never launched serving the trained checkpoint")
     check("output.csv" in files and sum(f.endswith(".png") for f in files) == N_IMAGES,
@@ -3506,6 +3529,212 @@ def _leaves(tree):
             yield k, v
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (`--use_ddp`, parallel/mesh.py and parallel/serving.py):
+# torchrun on the one card, NCCL, a world of one, through the same code as
+# a world of many.
+
+DDP_TRAIN = 2 * TRAIN_BATCH  # train images of the DDP phases: 2 steps an epoch
+DDP_TIMED_STEPS = 10
+# One bf16 step in a world of one against the plain step from one state
+# (the loss relative, 1 - the lowest gradient cosine, max |d| of the
+# BatchNorm statistics and of the parameters after the step), and the DDP
+# serve against the plain serve (max |d| of the kept scores and boxes):
+# 3x what this script read on an H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md), all 0 but the cosine's f64 rounding, 2.2e-16: the all-reduce of
+# one rank and the divide by 1 are exact, and this card repeated the plain
+# step bit for bit. A step is also allowed 3x the plain step's own repeat
+# in the run, in case a cuDNN backward does not repeat on another card.
+DDP_STEP_LIMITS = {"loss_rel": 0.0, "one_minus_min_cos": 6.7e-16, "bn_stats": 0.0,
+                   "params": 0.0}
+DDP_SERVE_LIMITS = {"scores": 0.0, "boxes": 0.0}
+
+
+def torchrun(root, module, argv, timeout=600):
+    """`torchrun --standalone --nproc_per_node 1 -m
+    vision_conglomerate_torch.<module> --use_ddp argv` in root on the card;
+    returns its host seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", f"vision_conglomerate_torch.{module}", "--use_ddp", *argv, "--device", "cuda"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.time() - t0
+    check(proc.returncode == 0, f"torchrun {module} --use_ddp exited {proc.returncode}:\n"
+                                f"{(proc.stdout + proc.stderr)[-4000:]}")
+    return seconds
+
+
+def check_ddp_artifacts(root, task, model, lr, loss_key):
+    """What a torchrun --use_ddp train CLI must have written under root:
+    TRAIN_EPOCHS rows of finite losses in both CSVs, best_model/ with its
+    config, a snapshot an epoch whose optimizer runs at the config's lr
+    times the world size (1)."""
+    import pandas as pd
+    from vision_conglomerate_torch.train.checkpoint import load_checkpoint
+
+    for rel in (f"metrics/{task}/train_metrics.csv", f"metrics/{task}/eval_metrics.csv",
+                f"saved_model/{task}/best_model/{model}.ckpt.tar",
+                f"saved_model/{task}/best_model/config/config.yaml"):
+        check(os.path.isfile(os.path.join(root, rel)), f"{task} --use_ddp artifact missing: {rel}")
+    hist = {m: pd.read_csv(os.path.join(root, f"metrics/{task}/{m}_metrics.csv"))
+            for m in ("train", "eval")}
+    for mode, df in hist.items():
+        check(len(df) == TRAIN_EPOCHS and bool(np.isfinite(df[loss_key]).all()),
+              f"{task} --use_ddp {mode}_metrics.csv: {df.to_dict('list')}")
+    snaps = sorted(os.path.join(r, f) for r, _, fs in os.walk(
+        os.path.join(root, f"saved_model/{task}/checkpoints")) for f in fs
+        if f.endswith(".ckpt.tar"))
+    check(len(snaps) == TRAIN_EPOCHS, f"{task} --use_ddp snapshots: {snaps}")
+    got = load_checkpoint(snaps[-1])["TORCH_OPTIMIZER_PARAMS"]["param_groups"][0]["lr"]
+    check(abs(got - lr) <= 1e-12 * lr, f"{task} --use_ddp lr {got}, want {lr} x 1 rank")
+    return {m: df[loss_key].tolist() for m, df in hist.items()}
+
+
+def timed_steps(pipe, batch, n=DDP_TIMED_STEPS):
+    """Mean ms of n synchronized train steps on one batch (host clock),
+    after one untimed step."""
+    pipe.train_step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        pipe.train_step(*batch)
+    torch.cuda.synchronize()
+    return (time.time() - t0) / n * 1e3
+
+
+def ddp_phase(root):
+    """Phases 38-40: train_det --use_ddp through torchrun; one DDP step
+    against the plain step, and their times; the DDP-trained best model
+    served through both kernels; make_dp_serve against the plain serve."""
+    from vision_conglomerate_torch.infer.runner import detect, load_detection_model
+    from vision_conglomerate_torch.ops.postprocess import postprocess_detections
+    from vision_conglomerate_torch.ops.preprocess import normalize_images
+    from vision_conglomerate_torch.parallel import make_dp_serve, mesh
+    from vision_conglomerate_torch.utils import load_yaml
+
+    config, config_path, anchors_path = write_train_data(root, DDP_TRAIN)
+    lr = float(config["train_config"]["optimizer_config"]["lr"])
+    seconds = torchrun(root, "train_det", [
+        "--config_path", config_path, "--anchors_path", anchors_path, "--batch_size",
+        str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS), "--checkpoint_interval", "1",
+        "--map_eval", "--no_verbose"])
+    losses = check_ddp_artifacts(root, "detection", "DetectionNet", lr, "aggregate_loss")
+    print(f"ddp: torchrun --nproc_per_node 1 train_det --use_ddp (NCCL, world 1), "
+          f"{TRAIN_EPOCHS} epochs of {DDP_TRAIN // TRAIN_BATCH} steps at batch {TRAIN_BATCH}, "
+          f"640x640, bf16, --map_eval: {seconds:.2f} s (host clock, process start included); "
+          f"losses {losses}")
+
+    # 38: one step in a world of one against the plain step, from one state
+    anchors = shipped_anchors("detection")
+    batch = train_batch(config, 2)
+
+    def step():
+        net = seeded_net(config, anchors, torch.bfloat16, "cuda")
+        res = train_step_result(net, config, batch)
+        return res, {n: p.detach().float().cpu() for n, p in net.named_parameters()}, net
+
+    (plain, plain_p, net), (again, again_p, _) = step(), step()
+    skip = no_grad_biases(net)
+    names = [n for n in plain[1] if n not in skip]
+    full = [torch.from_numpy(a).cuda() for a in train_batch(config, TRAIN_BATCH)]
+    pipe = trainer(net, config)
+    plain_ms = [timed_steps(pipe, full)]
+    mesh.maybe_initialize_distributed("cuda")
+    try:
+        check(mesh.world_size() == 1, f"ddp: world size {mesh.world_size()}")
+        ddp, ddp_p, _ = step()
+        ddp_ms = [timed_steps(pipe, full), timed_steps(pipe, full)]
+    finally:
+        mesh.shutdown_distributed()
+    plain_ms.append(timed_steps(pipe, full))
+    del pipe, net, full
+    out = {}
+    for tag, (r, p) in (("ddp", (ddp, ddp_p)), ("repeat", (again, again_p))):
+        cmp = compare_steps(r, plain, names)
+        out[tag] = {k: cmp[k] for k in ("loss_rel", "one_minus_min_cos", "bn_stats")}
+        out[tag]["params"] = max((p[n] - plain_p[n]).abs().max().item() for n in plain_p)
+    print(f"ddp: one bf16 step on 2 images, 640x640: DDP (world 1) vs plain {out['ddp']}; "
+          f"plain vs plain {out['repeat']}; limits {DDP_STEP_LIMITS} or 3x the repeat")
+    for key, lim in DDP_STEP_LIMITS.items():
+        v = out["ddp"][key]
+        check(bool(np.isfinite(v)) and v <= max(lim, 3 * out["repeat"][key]),
+              f"ddp: the DDP step differs from the plain step: {key} {v:.3e}")
+    print(f"ddp: train step at batch {TRAIN_BATCH}, 640x640, bf16, one batch on the card: plain "
+          f"{plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, DDP world 1 {ddp_ms[0]:.3f} / "
+          f"{ddp_ms[1]:.3f} ms (plain, DDP, DDP, plain; {DDP_TIMED_STEPS} steps each, host "
+          f"clock, synchronized)")
+
+    # 39: the DDP-trained best model served through both kernels
+    launches = serve_trained(root, config, label="ddp")
+
+    # 40: make_dp_serve in a world of one against the plain serve
+    best = os.path.join(root, "saved_model/detection/best_model")
+    model_config = load_yaml(os.path.join(best, "config", "config.yaml"))["model_config"]
+    model, num_classes = load_detection_model(os.path.join(best, "DetectionNet.ckpt.tar"),
+                                              model_config, device="cuda")
+    imgs = normalize_images(torch.from_numpy(train_batch(config, BATCH)[0]).cuda())
+
+    def serve_fn(x):
+        return postprocess_detections(detect(model, x, (640, 640)), num_classes,
+                                      iou_threshold=0.35, score_threshold=0.01,
+                                      max_detections=300)
+
+    plain_out = serve_fn(imgs)
+    mesh.maybe_initialize_distributed("cuda")
+    try:
+        zero_counters()
+        dp_out = make_dp_serve(serve_fn)(imgs)
+        torch.cuda.synchronize()
+        dp_launches = read_counters()
+    finally:
+        mesh.shutdown_distributed()
+    check(all(n > 0 for n in dp_launches.values()),
+          f"make_dp_serve: a kernel never launched: {dp_launches}")
+    check(torch.equal(dp_out.valid, plain_out.valid) and torch.equal(
+        dp_out.classes[dp_out.valid], plain_out.classes[plain_out.valid]),
+        "make_dp_serve: kept rows or classes differ from the plain serve")
+    serve_err = {"scores": (dp_out.scores - plain_out.scores).abs().max().item(),
+                 "boxes": (dp_out.boxes_xyxy - plain_out.boxes_xyxy).abs().max().item()}
+    print(f"ddp: make_dp_serve (world 1) vs the plain serve of the DDP-trained deploy-form "
+          f"net, batch {BATCH}: {int(plain_out.valid.sum())} kept rows on both, max |d| "
+          f"{serve_err} (limits {DDP_SERVE_LIMITS}); launches {dp_launches}")
+    for key, lim in DDP_SERVE_LIMITS.items():
+        check(serve_err[key] <= lim, f"make_dp_serve {key} differ by {serve_err[key]:.3g}")
+    return dict(cli_seconds=seconds, losses=losses, step_vs_plain=out,
+                plain_step_ms=plain_ms, ddp_step_ms=ddp_ms, served_launches=launches,
+                dp_serve_launches=dp_launches, dp_serve_err=serve_err)
+
+
+def tn_ddp_phase(root):
+    """Phase 41: train_tracknet's main with --use_ddp in this process (a
+    world of one on a free local port, NCCL; phase 38 runs torchrun) at the
+    shipped config, batch 16, 2 epochs: finite losses, the artifacts, the
+    lr times the world size."""
+    from vision_conglomerate_torch import train_tracknet
+    from vision_conglomerate_torch.parallel import mesh
+
+    config, config_path = write_tn_train_data(root)
+    lr = float(config["train_config"]["optimizer_config"]["lr"])
+    cwd = os.getcwd()
+    os.chdir(root)
+    t0 = time.time()
+    try:
+        train_tracknet.main(["--use_ddp", "--config_path", config_path, "--batch_size",
+                             str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS),
+                             "--checkpoint_interval", "1", "--no_verbose", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    check(not mesh.is_distributed(), "tracknet ddp: the process group outlived main")
+    losses = check_ddp_artifacts(root, "tracknet", "TrackNet", lr, "loss")
+    print(f"tracknet ddp: train_tracknet --use_ddp (NCCL, world 1, in this process), "
+          f"{TRAIN_EPOCHS} epochs at batch {TRAIN_BATCH}, 640x352, bf16: {seconds:.2f} s (host "
+          f"clock); losses {losses}")
+    return dict(cli_seconds=seconds, losses=losses)
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3600,6 +3829,10 @@ def main():
         kp_train = kp_train_phase(root)
     with tempfile.TemporaryDirectory() as root, phase_clock("alternates train, eval (35, 37)"):
         alt_train = alt_train_phase(root)
+    with tempfile.TemporaryDirectory() as root, phase_clock("ddp train, step, serve (38-40)"):
+        ddp = ddp_phase(root)
+    with tempfile.TemporaryDirectory() as root, phase_clock("tracknet ddp (41)"):
+        tn_ddp = tn_ddp_phase(root)
     with phase_clock("kernels (3)"):
         rows, summary = kernel_phase({
             "serve": (seen, launches), "seg_serve": (seg_seen, seg_serve["launches"]),
@@ -3644,7 +3877,8 @@ def main():
                        kp_serve=kp_serve, kp_video=kp_video, kp_int8_serve=kp_int8_serve,
                        kp_train=kp_train, alt_serve=alt_serve, s2d_serve=s2d_serve,
                        serve_fast=serve_fast, alt_int8_serve=alt_int8, s2d_int8_serve=s2d_int8,
-                       alt_train=alt_train, kernels=summary), f, indent=1,
+                       alt_train=alt_train, ddp=ddp, tracknet_ddp=tn_ddp, kernels=summary),
+                  f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))
     print(f"card: {card}")

@@ -224,7 +224,8 @@ def test_reference_loader_matches_the_jax_converter(name, tmp_path):
     torch.save({"LAST_EPOCH": 3, "NETWORK_PARAMS": ref, "NUM_CLASSES": NUM_CLASSES}, path)
     loaded, num_classes = torch_port.load_reference_checkpoint(path, config, task)
     assert num_classes == NUM_CLASSES
-    want = jm.apply(convert_torch_state_dict(ref), jnp.asarray(x), train=False, **kw)
+    want = jax.jit(lambda v, xs: jm.apply(v, xs, train=False, **kw))(
+        convert_torch_state_dict(ref), jnp.asarray(x))
     with torch.no_grad():
         got = loaded(nchw(x), **kw)
     if name == "tracknet_base":

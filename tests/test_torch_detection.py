@@ -130,7 +130,7 @@ def test_train_form_parity(model_case):
     """Per-scale (N, ny, nx, na, D) outputs of the train form in eval mode."""
     variables, x = model_case
     jax_net = JaxDetectionNet(num_classes=NUM_CLASSES, config=CONFIG, anchors=ANCHORS)
-    want = jax_net.apply(variables, jnp.asarray(x), train=False)
+    want = jax.jit(lambda v, xs: jax_net.apply(v, xs, train=False))(variables, jnp.asarray(x))
     net = DetectionNet(NUM_CLASSES, CONFIG, device="cpu")
     net.load_state_dict(flax_to_state_dict(variables))
     with torch.no_grad():
@@ -152,9 +152,9 @@ def test_deploy_forward_matches_jax_deploy(model_case, og_size):
     jax_deploy = JaxDetectionNet(num_classes=NUM_CLASSES, config=CONFIG, anchors=ANCHORS,
                                  deploy=True)
     with bn_folding(), fused_pointwise():
-        want = np.asarray(jax_deploy.apply(
-            {"params": dp, **({"batch_stats": ds} if ds else {})}, jnp.asarray(x),
-            train=False, inference=True, og_size=og_size))
+        want = np.asarray(jax.jit(lambda v, xs: jax_deploy.apply(
+            v, xs, train=False, inference=True, og_size=og_size))(
+            {"params": dp, **({"batch_stats": ds} if ds else {})}, jnp.asarray(x)))
 
     state = flax_to_state_dict(variables)
     deploy = DetectionNet(NUM_CLASSES, CONFIG, deploy=True, folded=True, device="cpu")

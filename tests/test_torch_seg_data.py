@@ -169,5 +169,15 @@ def test_loader_puts_the_four_tensors_on_the_device(seg_root):
 
 
 def test_native_decode_raises(seg_root):
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        SegmentationDataset(seg_root, decode_backend="native")
+    """decode_backend "native" (the port's C++ decode, PIL-parity bicubic)
+    gives the "pil" items within 1 LSB: the same labels and masks; an
+    unknown backend still raises."""
+    ds_pil, ds_nat = (SegmentationDataset(seg_root, img_wh=(64, 48), max_labels=4,
+                                          decode_backend=b) for b in ("pil", "native"))
+    for i in range(len(ds_pil)):
+        (a, la, ma), (b, lb, mb) = ds_pil[i], ds_nat[i]
+        assert a.shape == b.shape and np.abs(a.astype(int) - b.astype(int)).max() <= 1
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(ma, mb)
+    with pytest.raises(ValueError, match="decode_backend"):
+        SegmentationDataset(seg_root, decode_backend="turbo")

@@ -170,9 +170,9 @@ def test_deploy_form_parity(seg_case, og_size):
     jax_deploy = JaxSegmentationNet(num_classes=NUM_CLASSES, config=SEG_CONFIG,
                                     anchors=ANCHORS, deploy=True)
     with bn_folding(), fused_pointwise():
-        want_preds, want_protos = jax_deploy.apply(
-            {"params": dp, **({"batch_stats": ds} if ds else {})}, jnp.asarray(x),
-            train=False, inference=True, og_size=og_size)
+        want_preds, want_protos = jax.jit(lambda v, xs: jax_deploy.apply(
+            v, xs, train=False, inference=True, og_size=og_size))(
+            {"params": dp, **({"batch_stats": ds} if ds else {})}, jnp.asarray(x))
     deploy = SegmentationNet(NUM_CLASSES, SEG_CONFIG, deploy=True, folded=True, device="cpu")
     deploy.load_state_dict(deploy_transform(net.state_dict()))
     assert all(not isinstance(m, torch.nn.BatchNorm2d) for m in deploy.modules())

@@ -44,6 +44,7 @@ from vision_conglomerate_tpu.models import TrackNet as JaxTrackNet
 from vision_conglomerate_tpu.parallel import make_mesh
 from vision_conglomerate_tpu.train import TrainTrackNetPipeline as JaxPipeline
 from vision_conglomerate_tpu.train import make_optimizer as jax_make_optimizer
+from vision_conglomerate_tpu.train import tracknet_trainer as jax_tracknet_trainer
 from vision_conglomerate_tpu.train.lr_schedule import make_lr_scheduler as jax_make_lr_scheduler
 
 from vision_conglomerate_torch import eval_tracknet, inference_tracknet, train_tracknet
@@ -111,11 +112,17 @@ def test_tiny_config_is_the_shipped_one_cut_in_width():
 
 def jax_pipeline(variables):
     """The JAX pipeline with the bridged variables in place of model.init
-    and its re-initialisation, its state as the train step returns it."""
+    and its re-initialisation, its state as the train step returns it. The
+    constructor's re-initialisation is skipped and its optimizer init
+    jitted: the state it builds is replaced at once (they were eager
+    per-leaf ops: 26 s of the advanced net's fixture)."""
     model = JaxTrackNet(config=MC)
     tx, base_lr = jax_make_optimizer(OPT_CFG)
+    tx = tx._replace(init=jax.jit(tx.init))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-    with mock.patch.object(JaxTrackNet, "init", lambda self, *a, **k: jvars):
+    with mock.patch.object(JaxTrackNet, "init", lambda self, *a, **k: jvars), \
+            mock.patch.dict(jax_tracknet_trainer.INIT_SCHEMES,
+                            {k: lambda p, key: p for k in jax_tracknet_trainer.INIT_SCHEMES}):
         pipe = JaxPipeline(model, tx, lr_scheduler=jax_make_lr_scheduler(SCHED_CFG, base_lr),
                            mesh=make_mesh(1), sample_input_shape=(H, W, 9))
     state = pipe.state.replace(params=jvars["params"], opt_state=tx.init(jvars["params"]),

@@ -108,7 +108,8 @@ def test_weight_bridge_covers_the_jax_tree(case):
 
 def test_train_form_logits_match_jax(case):
     net, variables, x = case
-    want = np.asarray(JaxTrackNet(config=CONFIG).apply(variables, jnp.asarray(x), train=False))
+    want = np.asarray(jax.jit(lambda v, xs: JaxTrackNet(config=CONFIG).apply(
+        v, xs, train=False))(variables, jnp.asarray(x)))
     with torch.no_grad():
         got = net(nchw(x)).permute(0, 2, 3, 1).numpy()
     assert got.shape == want.shape == (2, H, W, 256)
@@ -119,8 +120,8 @@ def test_train_mode_forward_and_batch_stats_match_jax(case):
     """Train mode normalises with the batch statistics and updates the
     running ones (flax's biased-variance rule)."""
     net, variables, x = case
-    logits, mut = JaxTrackNet(config=CONFIG).apply(
-        variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    logits, mut = jax.jit(lambda v, xs: JaxTrackNet(config=CONFIG).apply(
+        v, xs, train=True, mutable=["batch_stats"]))(variables, jnp.asarray(x))
     train_net = port_tracknet(seed=3).train()
     with torch.no_grad():
         got = train_net(nchw(x)).permute(0, 2, 3, 1).numpy()
@@ -139,8 +140,8 @@ def test_deploy_form_logits_match_jax(case):
     params, stats = jax_deploy_transform(variables["params"], variables["batch_stats"],
                                          fuse_repvgg=False)
     with bn_folding(True):
-        want = np.asarray(JaxTrackNet(config=CONFIG).apply(
-            {"params": params, "batch_stats": stats}, jnp.asarray(x), train=False))
+        want = np.asarray(jax.jit(lambda v, xs: JaxTrackNet(config=CONFIG).apply(
+            v, xs, train=False))({"params": params, "batch_stats": stats}, jnp.asarray(x)))
     dep = TrackNet(CONFIG, folded=True)
     dep.load_state_dict(deploy_transform(net.state_dict(), fuse_repvgg=False))
     with torch.no_grad():

@@ -12,7 +12,7 @@ blobs); decoded video frames mean |d| <= 1 (the same drawing of the same
 tracks through two mp4v encodes); eval f1 and counts exact, its loss rtol
 1e-4.
 """
-import argparse
+import contextlib
 import functools
 import json
 import os
@@ -214,7 +214,7 @@ def test_eval_cli_matches_the_jax_cli(trained, form, capsys):
     os.chdir(root)
     try:
         with mock.patch("vision_conglomerate_tpu.data.tracknet.TrackNetDataset.__init__",
-                        _seeded_init()):
+                        _seeded_init()), _jitted_jax_init():
             want = jax_eval_cli.run(jax_eval_cli.build_parser().parse_args(argv))
         capsys.readouterr()
         with mock.patch("vision_conglomerate_torch.data.tracknet.TrackNetDataset.__init__",
@@ -228,6 +228,27 @@ def test_eval_cli_matches_the_jax_cli(trained, form, capsys):
     for k in ("f1", "precision", "recall", "tp", "tn", "fp", "fn", "decode"):
         assert got[k] == want[k], k
     assert got["eval_loss"] == pytest.approx(want["eval_loss"], rel=1e-4)
+
+
+@contextlib.contextmanager
+def _jitted_jax_init():
+    """The JAX TrackNet's init and the JAX trainer's init schemes, jitted:
+    the same values as eager (the checkpoint replaces them in any case) at
+    a fraction of the compile time of their eager ops."""
+    import jax
+
+    from vision_conglomerate_tpu.models import TrackNet as JaxTrackNet
+    from vision_conglomerate_tpu.train import tracknet_trainer as jax_tracknet_trainer
+
+    init = JaxTrackNet.init
+
+    def jitted(self, key, x, **kw):
+        return jax.jit(lambda k, xs: init(self, k, xs, **kw))(key, x)
+
+    with mock.patch.object(JaxTrackNet, "init", jitted), mock.patch.dict(
+            jax_tracknet_trainer.INIT_SCHEMES,
+            {k: jax.jit(v) for k, v in jax_tracknet_trainer.INIT_SCHEMES.items()}):
+        yield
 
 
 def _seeded_init(port: bool = False):
@@ -269,13 +290,30 @@ def test_inference_cli_serves_the_trained_checkpoint(trained):
         os.chdir(cwd)
 
 
-def test_cli_defaults_and_raises(tmp_path):
+def test_cli_defaults_and_raises(trained):
+    """The CLIs default to cuda and take the JAX CLI's flags; --use_ddp
+    without torchrun builds in a world of one (gloo on the CPU): the lr is
+    the config's times 1 and both loaders shard (tests/test_torch_ddp*.py
+    run two ranks)."""
+    from vision_conglomerate_torch.parallel import mesh
+
     for mod in (train_tracknet, eval_tracknet, inference_tracknet):
         assert mod.build_parser().parse_args([]).device == "cuda"
     jax_flags = {"--batch_size", "--epochs", "--steps_per_epoch", "--checkpoint_interval",
                  "--eval_interval", "--no_verbose", "--lr_schedule", "--lr_schedule_interval",
                  "--use_ddp", "--checkpoint_path", "--config_path", "--lr", "--cache_data"}
     assert jax_flags <= set(train_tracknet.build_parser()._option_string_actions)
-    args = argparse.Namespace(use_ddp=True, batch_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        train_tracknet.build(args, TRAIN_CONFIG, None)
+    args = train_tracknet.build_parser().parse_args(
+        ["--use_ddp", "--batch_size", "3", "--device", "cpu"])
+    root, _ = trained
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        pipe, train_dl, eval_dl = train_tracknet.build(args, TRAIN_CONFIG, None)
+        assert mesh.is_distributed() and mesh.world_size() == 1
+        assert pipe.optimizer.param_groups[0]["lr"] == 1.0
+        assert train_dl.shard and eval_dl.shard and train_dl.batch_size == 3
+    finally:
+        mesh.shutdown_distributed()
+        os.chdir(cwd)
+    assert not mesh.is_distributed()

@@ -37,6 +37,7 @@ from vision_conglomerate_tpu.models import TrackNet as JaxTrackNet
 from vision_conglomerate_tpu.parallel import make_mesh
 from vision_conglomerate_tpu.train import TrainTrackNetPipeline as JaxPipeline
 from vision_conglomerate_tpu.train import make_optimizer as jax_make_optimizer
+from vision_conglomerate_tpu.train import tracknet_trainer as jax_tracknet_trainer
 from vision_conglomerate_tpu.train.lr_schedule import make_lr_scheduler as jax_make_lr_scheduler
 
 from vision_conglomerate_torch.data.loader import DataLoader
@@ -134,11 +135,17 @@ def one_batch(batch):
 
 def jax_pipeline(variables):
     """The JAX pipeline with the bridged variables in place of model.init
-    and its re-initialisation, its state as the train step returns it."""
+    and its re-initialisation, its state as the train step returns it. The
+    constructor's re-initialisation is skipped and its optimizer init
+    jitted: the state it builds is replaced at once (they were eager
+    per-leaf ops: 26 s of the advanced net's fixture)."""
     model = JaxTrackNet(config=CONFIG)
     tx, base_lr = jax_make_optimizer(OPT_CFG)
+    tx = tx._replace(init=jax.jit(tx.init))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-    with mock.patch.object(JaxTrackNet, "init", lambda self, *a, **k: jvars):
+    with mock.patch.object(JaxTrackNet, "init", lambda self, *a, **k: jvars), \
+            mock.patch.dict(jax_tracknet_trainer.INIT_SCHEMES,
+                            {k: lambda p, key: p for k in jax_tracknet_trainer.INIT_SCHEMES}):
         pipe = JaxPipeline(model, tx, lr_scheduler=jax_make_lr_scheduler(SCHED_CFG, base_lr),
                            mesh=make_mesh(1), sample_input_shape=(H, W, 9))
     state = pipe.state.replace(params=jvars["params"], opt_state=tx.init(jvars["params"]),
@@ -270,13 +277,24 @@ def test_resume_from_jax_snapshot_carries_adadelta_state(trajectory):
 
 
 def test_resume_other_optimizers_raise(trajectory):
+    """Another optimizer resumes from its own JAX state (SGD's momentum
+    trace here; every optimizer in tests/test_torch_optim_resume.py); the
+    Adadelta state handed to Adam or SGD is wrong input and raises."""
     net = TrackNet(CONFIG)
-    sgd, _ = make_optimizer({"name": "SGD", "lr": 0.1}, net)
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        load_optax_state(sgd, net, trajectory["jax_opt_state"])
-    adam, _ = make_optimizer({"name": "Adam", "lr": 0.1}, net)
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        load_optax_state(adam, net, trajectory["jax_opt_state"])
+    sgd_cfg = {"name": "SGD", "lr": 0.1, "momentum": 0.9}
+    tx, _ = jax_make_optimizer(sgd_cfg)
+    params = trajectory["variables"]["params"]
+    _, sgd_state = tx.update(params, tx.init(params), params)
+    sgd, _ = make_optimizer(sgd_cfg, net)
+    load_optax_state(sgd, net, sgd_state)
+    want = flax_to_state_dict({"params": sgd_state.inner_state[0].trace})
+    for name, p in net.named_parameters():
+        np.testing.assert_array_equal(sgd.state[p]["momentum_buffer"].numpy(),
+                                      want[name].numpy())
+    for name in ("Adam", "SGD"):
+        opt, _ = make_optimizer({"name": name, "lr": 0.1}, net)
+        with pytest.raises(ValueError, match="not one"):
+            load_optax_state(opt, net, trajectory["jax_opt_state"])
 
 
 def test_port_snapshot_round_trip(trajectory, tmp_path):

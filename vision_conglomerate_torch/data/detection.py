@@ -8,6 +8,10 @@ host (the trainer divides by 255 on the device).
 Keypoint columns ((x, y, vis) triples after the box) are kept: their xy go
 from image space to bbox-relative, clipped to [0, 1]. The batch pads
 ragged keypoint rows with +inf, so the loss's finite filter drops them.
+
+decode_backend "pil" decodes and resizes with PIL; "native" with the C++
+library of `data.native_loader` (its PIL-parity bicubic, within 1 LSB),
+and raises if that library does not build.
 """
 import glob
 import logging
@@ -31,10 +35,12 @@ class DetectionDataset:
         max_labels: int = 64,
         decode_backend: str = "pil",
     ):
+        self._native = None
         if decode_backend == "native":
-            raise NotImplementedError(
-                "decode_backend 'native' is not in the port yet (ROADMAP §A.8)")
-        if decode_backend != "pil":
+            from .native_loader import NativeImageDecoder
+
+            self._native = NativeImageDecoder()
+        elif decode_backend != "pil":
             raise ValueError(f"unknown decode_backend: {decode_backend!r}")
         if isinstance(img_wh, int):
             img_wh = (img_wh, img_wh)
@@ -92,11 +98,19 @@ class DetectionDataset:
             raw = np.concatenate([bbox, kp.reshape(kp.shape[0], -1)], axis=1)
         return raw.astype(np.float32)
 
+    def _load_image(self, idx: int) -> np.ndarray:
+        """The uint8 HWC image resized to img_wh, by the decode backend:
+        PIL, or the native library with its PIL-parity bicubic (within 1
+        LSB of PIL)."""
+        if self._native is not None:
+            with open(self.img_files[idx], "rb") as f:
+                return self._native.decode_resize(f.read(), self.img_wh, resize="pil")
+        return load_rgb_image(self.img_files[idx], self.img_wh)
+
     def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
         """(uint8 HWC image resized to img_wh, (n, 5 + 3K) float32 label
         rows)."""
-        return (load_rgb_image(self.img_files[idx], self.img_wh),
-                self.load_labels(self.annotation_files[idx]))
+        return self._load_image(idx), self.load_labels(self.annotation_files[idx])
 
     def collate_fn(self, batch):
         """Stack images; pad labels to (B, max_labels, C) with a

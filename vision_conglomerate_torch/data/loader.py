@@ -16,6 +16,8 @@ from typing import Any, Callable, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_batch
+
 
 class DataLoader:
     """Map-style loader: shuffle, batch, collate, threaded item loads.
@@ -24,11 +26,17 @@ class DataLoader:
     the epoch's start, so every batch has one shape; the padding rows are
     always the trailing rows of the final batch. drop_last leaves the final
     partial batch out instead.
+
+    With `shard`, under data parallelism (`parallel.mesh`), `batch_size` is
+    the global batch and each process loads and yields only its rows
+    [r B/n, (r+1) B/n) of each one; every process shuffles with the same
+    seed, so they agree on the batches. len() counts global batches.
     """
 
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = False,
                  collate_fn: Optional[Callable] = None, num_workers: int = 8,
-                 pad_last: str = "none", seed: int = 0, drop_last: bool = False):
+                 pad_last: str = "none", seed: int = 0, drop_last: bool = False,
+                 shard: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,6 +44,7 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.pad_last = pad_last
         self.drop_last = drop_last
+        self.shard = shard
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -58,6 +67,8 @@ class DataLoader:
 
             def submit(batch_idx):
                 idxs = order[batch_idx * self.batch_size:(batch_idx + 1) * self.batch_size]
+                if self.shard:
+                    idxs = shard_batch(idxs)
                 pending.append([pool.submit(self.dataset.__getitem__, int(i)) for i in idxs])
 
             ahead = 2  # batches decoded ahead of consumption

@@ -15,7 +15,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..utils.image import load_rgb_image
 from ..utils.labels import (get_class_weights, interpolate_polygons, load_polygon_labels,
                             overlap_masks, polygons_2_masks, polygons_2_xywh)
 from .detection import DetectionDataset
@@ -32,7 +31,7 @@ class SegmentationDataset(DetectionDataset):
     def __getitem__(self, idx: int):
         """(uint8 HWC image, (n, 5) float32 labels, uint8 masks: (1, Hm, Wm)
         indexed with overlap, else (n, Hm, Wm))."""
-        img = load_rgb_image(self.img_files[idx], self.img_wh)
+        img = self._load_image(idx)
         raw = load_polygon_labels(self.annotation_files[idx])
         h, w = img.shape[0], img.shape[1]
         if len(raw) > 0:

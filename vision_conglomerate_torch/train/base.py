@@ -8,16 +8,21 @@ subclass), .save_checkpoint/.save_best_model/.load_checkpoint,
 metrics/<task>/{train,eval}_metrics.csv and *_metrics_plot.jpg,
 saved_model/<task>/best_model/<Model>.ckpt.tar, and snapshots under
 saved_model/<task>/checkpoints/<unix time>/, each with config/config.yaml.
-The port runs one process, so every write happens.
+Under data parallelism only the primary process (rank 0) writes them and
+prints the epoch lines (`parallel.mesh.process_is_primary`); every rank
+keeps the same history, since the metrics are combined over the ranks.
 """
 import logging
 import os
 import time
 from datetime import datetime
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import pandas as pd
+import torch
 
+from ..parallel.mesh import (all_reduce_sum_, batchnorm_statistics, is_distributed,
+                             process_is_primary, world_size)
 from ..utils.plots import save_metric_plots
 from ..utils.yaml_io import load_yaml, save_yaml
 from .checkpoint import load_checkpoint as _load_ckpt
@@ -94,6 +99,47 @@ class BasePipeline:
             return
         sched.step(metric)
 
+    # ------------------------------------------------- data parallelism
+    def _sum_metrics(self) -> Tuple[str, ...]:
+        """Metrics that are per-batch sums, not means: the ranks' values add
+        up (the JAX package's psum); every other metric is averaged."""
+        return ()
+
+    def _sync_train_step(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Between the backward and the optimizer step, under data
+        parallelism: the gradients and the BatchNorm running statistics
+        averaged over the ranks (pmean of grads and of the new batch_stats
+        in the JAX per-shard step) in one all-reduce, and the step's metrics
+        averaged (sum-type ones summed) in another. Without a process group
+        the metrics come back as they are."""
+        if not is_distributed():
+            return metrics
+        n = world_size()
+        all_reduce_sum_([p.grad for g in self.optimizer.param_groups for p in g["params"]
+                         if p.grad is not None] + batchnorm_statistics(self.model), 1.0 / n)
+        sums = self._sum_metrics()
+        vec = torch.stack([v.detach().float() / (1 if k in sums else n)
+                           for k, v in metrics.items()])
+        all_reduce_sum_([vec])
+        return dict(zip(metrics, vec.unbind()))
+
+    def _sync_eval_step(self, metrics: Dict[str, torch.Tensor],
+                        n_valid: int) -> Dict[str, torch.Tensor]:
+        """An eval step's metrics combined over the ranks, as the JAX
+        package's `_combine_metrics` with a weight: each rank's means
+        weighted by its count of valid (not wrap-padded) rows, sum over sum;
+        sum-type metrics summed; a rank without valid rows adds nothing."""
+        if not is_distributed():
+            return metrics
+        vals = torch.stack([v.detach().float() for v in metrics.values()])
+        is_sum = torch.tensor([k in self._sum_metrics() for k in metrics], device=vals.device)
+        w = float(n_valid)
+        contrib = torch.where(is_sum, vals, vals * w) if w > 0 else torch.zeros_like(vals)
+        vec = torch.cat([contrib, torch.tensor([w], device=vals.device)])
+        all_reduce_sum_([vec])
+        out = torch.where(is_sum, vec[:-1], vec[:-1] / vec[-1].clamp(min=1e-9))
+        return dict(zip(metrics, out.unbind()))
+
     # ------------------------------------------------------------ manifest
     def _manifest(self, snapshot: bool) -> Dict[str, Any]:
         raise NotImplementedError
@@ -102,6 +148,8 @@ class BasePipeline:
         raise NotImplementedError
 
     def _save_config_copy(self, config_path: str, to_checkpoint_dir: bool):
+        if not process_is_primary():
+            return
         dest = os.path.join(
             self.checkpoints_dir if to_checkpoint_dir else self.best_model_dir, "config")
         config = load_yaml(config_path)
@@ -112,10 +160,14 @@ class BasePipeline:
                   sort_keys=False, default_flow_style=True)
 
     def save_best_model(self):
+        if not process_is_primary():
+            return
         path = os.path.join(self.best_model_dir, f"{self.model_name}.ckpt.tar")
         _save_ckpt(path, self._manifest(snapshot=False))
 
     def save_checkpoint(self):
+        if not process_is_primary():
+            return
         stamp = str(datetime.now()).replace(":", "-")
         path = os.path.join(
             self.checkpoints_dir, f"{self.model_name}-{self.last_epoch}-{stamp}.ckpt.tar")
@@ -145,7 +197,7 @@ class BasePipeline:
     # ------------------------------------------------------------ metrics IO
     def _record(self, mode: str, metrics: Dict[str, float], verbose: bool):
         getattr(self, f"_{mode}_metrics").append(metrics)
-        if verbose:
+        if verbose and process_is_primary():
             print(f"[{mode.title()}]: " + "\t".join(
                 f"{k.replace('_', ' ')}: {v :.4f}" for k, v in metrics.items()))
 
@@ -157,6 +209,8 @@ class BasePipeline:
             history[-1].update(extra)
 
     def metrics_to_csv(self):
+        if not process_is_primary():
+            return
         os.makedirs(self.metrics_dir, exist_ok=True)
         pd.DataFrame(self._train_metrics).to_csv(
             os.path.join(self.metrics_dir, "train_metrics.csv"), index=False)
@@ -166,6 +220,8 @@ class BasePipeline:
     def save_metrics_plots(self):
         """metrics/<task>/{train,eval}_metrics_plot.jpg: each metric against
         the epoch (drawn with PIL, `utils.plots`)."""
+        if not process_is_primary():
+            return
         os.makedirs(self.metrics_dir, exist_ok=True)
         for mode in ("train", "eval"):
             history = getattr(self, f"_{mode}_metrics")

@@ -7,10 +7,11 @@ other; reading needs numpy only. `weights.flax_to_state_dict` and
 `weights.state_dict_to_flax` convert NETWORK_PARAMS to and from a port
 `state_dict`. The JAX package's orbax format is not read here.
 
-A JAX snapshot pickles its OPTIMIZER_PARAMS as optax named tuples. Loading
-never imports optax, jax or flax: their classes come back as plain named
-tuples of this module's making (`ForeignState`), which keep the class name
-and the fields in order. A port snapshot keeps its torch optimizer state
+A JAX snapshot pickles its OPTIMIZER_PARAMS as optax named tuples (and the
+JAX package's own: NAdamState, RpropState, ASGDState). Loading never
+imports optax, jax, flax or the JAX package: their classes come back as
+plain tuples of this module's making (`ForeignState`), which keep the
+class name and the fields in order. A port snapshot keeps its torch optimizer state
 under TORCH_OPTIMIZER_PARAMS (numpy leaves), a key the JAX package does not
 read.
 """
@@ -21,7 +22,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "optax", "chex")
+FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "optax", "chex", "vision_conglomerate_tpu")
 
 
 def _to_numpy(tree: Any) -> Any:

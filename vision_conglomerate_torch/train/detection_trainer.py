@@ -1,5 +1,6 @@
-"""Detection training on one device, the JAX package's
-train/detection_trainer.py in PyTorch.
+"""Detection training, the JAX package's train/detection_trainer.py in
+PyTorch, on one device or data-parallel over the ranks of a process group
+(`parallel.mesh`).
 
 A train step: forward in train mode (BatchNorm updates its running
 statistics), `detection_loss`, backward, optimizer step. An eval step: the
@@ -10,9 +11,17 @@ divided by 255 there. Each step's metrics are stacked into one vector and
 summed on the device; the host reads the sum once, at the end of the
 epoch, so no step waits on the host.
 
+Under data parallelism each rank takes its shard of the global batch
+(`DataLoader(shard=True)`): BatchNorm normalises with the shard's own
+statistics, and before each optimizer step the gradients and the running
+statistics are averaged over the ranks and the metrics combined
+(`BasePipeline._sync_train_step`); an eval step weights each rank's means
+by its valid rows (`_sync_eval_step`). Every rank seeds its flip
+generator with one seed, as the JAX shards share one key.
+
 Checkpoints use the JAX package's manifest format; a port snapshot keeps
 its torch optimizer state under TORCH_OPTIMIZER_PARAMS, and a JAX
-snapshot's Adam state carries over (`optim.load_optax_state`).
+snapshot's optimizer state carries over (`optim.load_optax_state`).
 """
 import logging
 from typing import Any, Dict, Optional
@@ -24,6 +33,7 @@ from ..models import DetectionNet
 from ..nn.initializers import INIT_SCHEMES
 from ..data.loader import prefetch_to_device
 from ..ops.preprocess import normalize_images, random_hflip
+from ..parallel.mesh import broadcast_module_, rank, world_size
 from ..utils.profiling import StepTimer
 from ..weights import flax_to_state_dict, state_dict_to_flax
 from .base import BasePipeline
@@ -75,6 +85,7 @@ class TrainDetectionPipeline(BasePipeline):
         logger.info(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")
         if checkpoint_path:
             self.load_checkpoint(checkpoint_path)
+        broadcast_module_(model)
 
     # ----------------------------------------------------------- manifest
     def _manifest(self, snapshot: bool) -> Dict[str, Any]:
@@ -100,6 +111,12 @@ class TrainDetectionPipeline(BasePipeline):
             self.lr_scheduler.load_state_dict(manifest["LR_SCHEDULER_PARAMS"])
 
     # --------------------------------------------------------------- steps
+    def _sum_metrics(self):
+        """The JAX trainer's _SUM_METRICS, and the batch_scale_loss
+        aggregate (already scaled by the shard's rows in the loss)."""
+        return ("seg_dropped_candidates",) + (
+            ("aggregate_loss",) if self.loss_cfg.batch_scale_loss else ())
+
     def _anchors(self):
         m = self.model
         return (m.sm_anchors, m.md_anchors, m.lg_anchors)
@@ -118,6 +135,7 @@ class TrainDetectionPipeline(BasePipeline):
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         fill_missing_grads(self.optimizer)
+        metrics = self._sync_train_step(metrics)
         self.optimizer.step()
         return metrics
 
@@ -156,7 +174,9 @@ class TrainDetectionPipeline(BasePipeline):
         Eval masks the wrap-padded rows of the final batch: the loader
         contract is in-order batches with padding only as trailing rows of
         the last one, so the valid rows are the leading
-        len(dataset) - seen. A loader without a `dataset` scores every row.
+        len(dataset) - seen of the global batch. A loader without a
+        `dataset` scores every row. Under data parallelism a batch is this
+        rank's shard of the global batch.
         """
         if mode not in self._valid_modes:
             raise ValueError(f"Invalid mode {mode} expected one of {self._valid_modes}")
@@ -170,17 +190,19 @@ class TrainDetectionPipeline(BasePipeline):
         keys, total, count, seen = None, None, 0, 0
         timer = StepTimer()
         for batch in prefetch_to_device(dataloader, self.device):
-            bsz = int(batch[0].shape[0])
+            bsz = int(batch[0].shape[0])  # this rank's rows
+            n_rows = bsz * world_size()  # the global batch's
             if train:
                 metrics = self.train_step(*batch)
-                n_rows = bsz
             else:
-                n_rows = bsz if n_total is None else min(bsz, max(n_total - seen, 0))
+                if n_total is not None:
+                    n_rows = min(n_rows, max(n_total - seen, 0))
                 seen += n_rows
                 if n_rows == 0:
                     continue
-                image_mask = (torch.arange(bsz, device=self.device) < n_rows).float()
-                metrics = self.eval_step(*batch, image_mask)
+                n_local = min(max(n_rows - rank() * bsz, 0), bsz)
+                image_mask = (torch.arange(bsz, device=self.device) < n_local).float()
+                metrics = self._sync_eval_step(self.eval_step(*batch, image_mask), n_local)
             keys = list(metrics)
             vec = torch.stack([v.detach() for v in metrics.values()])
             total = vec if total is None else total.add_(vec)

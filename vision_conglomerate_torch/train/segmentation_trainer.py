@@ -1,13 +1,13 @@
-"""Segmentation training on one device, the JAX package's
-train/segmentation_trainer.py in PyTorch.
+"""Segmentation training, the JAX package's train/segmentation_trainer.py
+in PyTorch, on one device or data-parallel (as detection).
 
 As detection (`TrainDetectionPipeline`), but a batch is (imgs, labels,
 label_mask, target_masks), the net also returns protos, and the loss is
 `segmentation_loss`. There is no random flip: the JAX seg trainer's loss
 skips it, so this trainer takes no `hflip_prob`. The "random" cap policy
 draws from the trainer's own generator, seeded from `seed`, a fresh draw
-each step; an eval step draws from a generator seeded with `seed` anew, so
-evaluation is repeatable.
+each step (one seed on every rank); an eval step draws from a generator
+seeded with `seed` anew, so evaluation is repeatable.
 """
 from typing import Dict, Optional
 
@@ -51,6 +51,7 @@ class TrainSegmentationPipeline(TrainDetectionPipeline):
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         fill_missing_grads(self.optimizer)
+        metrics = self._sync_train_step(metrics)
         self.optimizer.step()
         return metrics
 

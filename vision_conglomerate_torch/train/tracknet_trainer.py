@@ -1,5 +1,6 @@
-"""TrackNet training on one device, the JAX package's
-train/tracknet_trainer.py in PyTorch.
+"""TrackNet training, the JAX package's train/tracknet_trainer.py in
+PyTorch, on one device or data-parallel over the ranks of a process group
+(`parallel.mesh`).
 
 - A train step: uint8 frames divided by 255 on the device, the forward in
   train mode, the mean softmax cross entropy over every pixel of the
@@ -15,10 +16,17 @@ train/tracknet_trainer.py in PyTorch.
   as the JAX package computes them (recall's denominator counts tp, tn, fp
   and fn of the visibility classes 1-3, tn included: a reference quirk).
 
+Under data parallelism each rank trains on its shard of the global batch:
+the gradients, the BatchNorm running statistics and the loss are averaged
+over the ranks before the optimizer step (the JAX step's pmean of all
+three); in eval each rank scores its shard and the per-row results
+(loss, decoded centre, hit, labels) are gathered in global row order, so
+the wrap-padded tail is masked per row as on one device.
+
 Checkpoints use the JAX package's manifest format (TrackNet.ckpt.tar, no
 NUM_CLASSES); a port snapshot keeps its torch optimizer state under
-TORCH_OPTIMIZER_PARAMS, and a JAX snapshot's Adam or Adadelta state
-carries over (`optim.load_optax_state`).
+TORCH_OPTIMIZER_PARAMS, and a JAX snapshot's optimizer state carries over
+(`optim.load_optax_state`).
 """
 import logging
 from typing import Any, Dict, Optional
@@ -33,6 +41,7 @@ from ..models.tracknet import TrackNet
 from ..nn.initializers import INIT_SCHEMES
 from ..ops.heatmap import decode_heatmap_peaks, hough_decode
 from ..ops.preprocess import normalize_images
+from ..parallel.mesh import all_gather_rows, broadcast_module_, process_is_primary, world_size
 from ..utils.profiling import StepTimer
 from ..weights import flax_to_state_dict, state_dict_to_flax
 from .base import BasePipeline
@@ -129,6 +138,7 @@ class TrainTrackNetPipeline(BasePipeline):
         logger.info(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")
         if checkpoint_path:
             self.load_checkpoint(checkpoint_path)
+        broadcast_module_(model)
 
     # ----------------------------------------------------------- manifest
     def _manifest(self, snapshot: bool) -> Dict[str, Any]:
@@ -163,8 +173,9 @@ class TrainTrackNetPipeline(BasePipeline):
         loss = tracknet_logits_loss(logits, heatmaps).mean()
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self._sync_train_step({"loss": loss.detach()})["loss"]
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def eval_step(self, frames: torch.Tensor, heatmaps: torch.Tensor,
@@ -194,7 +205,7 @@ class TrainTrackNetPipeline(BasePipeline):
         for frames, heatmaps, _others in prefetch_to_device(dataloader, self.device):
             loss = self.train_step(frames, heatmaps)
             total = loss if total is None else total + loss
-            timer.tick(frames.shape[0])
+            timer.tick(frames.shape[0] * world_size())
             count += 1
             if steps_per_epoch is not None and count >= steps_per_epoch:
                 break
@@ -216,27 +227,31 @@ class TrainTrackNetPipeline(BasePipeline):
         loss_sum, count, seen = 0.0, 0, 0
         n_total = len(getattr(dataloader, "dataset", ()) or ()) or None
         for frames, heatmaps, others in prefetch_to_device(dataloader, self.device):
-            others = others.cpu().numpy()
             loss, pred_hm, cx, cy, found = self.eval_step(frames, heatmaps, model)
-            n_valid = others.shape[0]
+            if self.decode == "hough":
+                circles = torch.from_numpy(hough_decode(
+                    pred_hm.cpu().numpy(), self.heatmap_threshold, self.hough_grad_config))
+                cx, cy = circles[:, 0].to(self.device), circles[:, 1].to(self.device)
+                found = ~torch.isnan(cx)
+            # (loss, cx, cy, found, others...) per row, of the global batch
+            rows = all_gather_rows(torch.cat([
+                torch.stack([loss.float(), cx.float(), cy.float(), found.float()], 1),
+                others.float()], 1))
+            n_valid = rows.shape[0]
             if n_total is not None:
                 n_valid = min(n_valid, max(n_total - seen, 0))
             seen += n_valid
             if n_valid == 0:
                 continue
-            loss_sum += float(loss[:n_valid].mean())
+            loss_sum += float(rows[:n_valid, 0].mean())
             count += 1
-            if self.decode == "hough":
-                circles = hough_decode(pred_hm.cpu().numpy(), self.heatmap_threshold,
-                                       self.hough_grad_config)
-                cx, cy, found = circles[:, 0], circles[:, 1], ~np.isnan(circles[:, 0])
-            else:
-                cx, cy, found = cx.cpu().numpy(), cy.cpu().numpy(), found.cpu().numpy()
-            score_windows(counts, others[:n_valid], cx, cy, found, self.tp_dist_tol)
+            host = rows[:n_valid].cpu().numpy()
+            score_windows(counts, host[:, 4:], host[:, 1], host[:, 2], host[:, 3] > 0,
+                          self.tp_dist_tol)
         metrics = dict(loss=loss_sum / max(count, 1), **f1_metrics(counts))
         self._record("eval", metrics, verbose)
         self._note_eval(metrics)
-        if verbose:
+        if verbose and process_is_primary():
             print("tp(vc0..3): {}  tn: {}  fp: {}  fn: {}".format(
                 *(counts[k].astype(int) for k in ("tp", "tn", "fp", "fn"))))
         return metrics

@@ -8,16 +8,24 @@ It writes what the JAX CLI writes: metrics/detection/*.csv and plots,
 saved_model/detection/best_model/DetectionNet.ckpt.tar with its
 config/config.yaml, and snapshots under saved_model/detection/checkpoints/.
 Auto-anchors may rewrite the file given as --anchors_path, and no other.
-The lr is scaled by the device count (1). `--map_eval` adds the val set's
-mAP@50 to each eval record (a `map50` column in eval_metrics.csv), and for
-keypoint data its PCK@0.1 (a `pck` column). Keypoint data ((cols - 5) // 3
+`--map_eval` adds the val set's mAP@50 to each eval record (a `map50`
+column in eval_metrics.csv), and for keypoint data its PCK@0.1 (a `pck`
+column). Keypoint data ((cols - 5) // 3
 keypoints per label row, as `configs/detection/config_kp.yaml` expects)
 gives the heads a keypoint branch, and the saved config/config.yaml
 carries `num_keypoints`.
 `model_config.remat`, which the CLI turns on by default at batch >= 32,
 recomputes each backbone and neck stage in the backward pass
-(`nn.blocks.stage`). `--use_ddp` is not in the port yet and raises (ROADMAP
-§A.8).
+(`nn.blocks.stage`).
+
+`--use_ddp` trains data-parallel, one process per card:
+
+    torchrun --nproc_per_node 4 -m vision_conglomerate_torch.train_det --use_ddp ...
+
+(without torchrun, one process is a world of one). `--batch_size` stays the
+global batch, cut over the ranks; the lr is scaled by the number of ranks,
+as the JAX CLI scales it by the device count; the auto-anchors are computed
+once, on rank 0, and broadcast; only rank 0 writes (`parallel.mesh`).
 """
 import argparse
 import logging
@@ -44,7 +52,7 @@ def make_dataset(config, subdir: str):
     )
 
 
-def make_dataloader(dataset, batch_size, config, shuffle=None, seed=42):
+def make_dataloader(dataset, batch_size, config, shuffle=None, seed=42, shard=False):
     from .data.loader import DataLoader
 
     dl_cfg = dict(config["train_config"].get("dataloader_config", {}) or {})
@@ -52,7 +60,7 @@ def make_dataloader(dataset, batch_size, config, shuffle=None, seed=42):
         shuffle = bool(dl_cfg.get("shuffle", True))
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                       num_workers=int(dl_cfg.get("num_workers", 8) or 8),
-                      pad_last="wrap", seed=seed)
+                      pad_last="wrap", seed=seed, shard=shard)
 
 
 def make_loss_config(config, num_classes: int, num_keypoints: int = 0):
@@ -67,33 +75,51 @@ def make_loss_config(config, num_classes: int, num_keypoints: int = 0):
     return DetectionLossConfig(num_classes=num_classes, num_keypoints=num_keypoints, **kwargs)
 
 
+def setup_device(args):
+    """This process's device: with --use_ddp its rank's, once it has joined
+    the process group (`parallel.mesh.maybe_initialize_distributed`)."""
+    from .device import resolve_device
+    from .parallel.mesh import maybe_initialize_distributed
+
+    return maybe_initialize_distributed(args.device) if args.use_ddp else resolve_device(args.device)
+
+
+def on_primary(fn, *args, **kwargs):
+    """fn(*args, **kwargs) run on rank 0 only and its result broadcast to
+    every rank: the auto-anchors' k-means and genetic search are random,
+    and they rewrite the anchors file."""
+    from .parallel.mesh import broadcast_object, process_is_primary
+
+    return broadcast_object(fn(*args, **kwargs) if process_is_primary() else None)
+
+
 def build(args, config, config_path, anchors_path):
     """(pipeline, train loader, eval loader) as `run` uses them."""
     import torch
 
-    from .device import resolve_device
     from .models import DetectionNet
     from .tools.make_anchors import generate_anchors_and_class_weights
     from .train.base import resolve_remat_default
     from .train.detection_trainer import TrainDetectionPipeline
     from .train.lr_schedule import make_lr_scheduler
+    from .parallel.mesh import world_size
     from .train.optim import make_optimizer
     from .utils import load_yaml
 
-    if args.use_ddp:
-        raise NotImplementedError("--use_ddp is not in the port yet (ROADMAP §A.8)")
-    resolve_remat_default(config["model_config"], args.batch_size)
-    dev = resolve_device(args.device)
+    resolve_remat_default(config["model_config"], args.batch_size)  # the global batch
+    dev = setup_device(args)
 
     tc = config["train_config"]
     train_ds = make_dataset(config, "train")
     eval_ds = make_dataset(config, "valid")
-    train_dl = make_dataloader(train_ds, args.batch_size, config)
-    eval_dl = make_dataloader(eval_ds, args.batch_size, config, shuffle=False)
+    train_dl = make_dataloader(train_ds, args.batch_size, config, shard=args.use_ddp)
+    eval_dl = make_dataloader(eval_ds, args.batch_size, config, shuffle=False,
+                              shard=args.use_ddp)
 
     auto_cfg = dict(config.get("auto_anchors_config", {}) or {})
     update_cfg = auto_cfg.pop("update_anchors_cfg", True)
-    anchors_arr, class_weights = generate_anchors_and_class_weights(
+    anchors_arr, class_weights = on_primary(
+        generate_anchors_and_class_weights,
         os.path.join(tc["data_path"], "train"), load_yaml(anchors_path)["anchors"],
         anchors_path=anchors_path, verbose=not args.no_verbose,
         update_anchors_cfg=update_cfg, **auto_cfg)
@@ -110,8 +136,8 @@ def build(args, config, config_path, anchors_path):
     opt_cfg = dict(tc["optimizer_config"])
     if getattr(args, "lr", None):
         opt_cfg["lr"] = float(args.lr)
-    n_devices = 1  # the lr scales by the device count, as in the JAX CLI
-    opt_cfg["lr"] = float(opt_cfg.get("lr", 1e-3)) * n_devices
+    # the lr scales by the device count, as in the JAX CLI
+    opt_cfg["lr"] = float(opt_cfg.get("lr", 1e-3)) * world_size()
     optimizer, base_lr = make_optimizer(
         opt_cfg, model, train_anchors=bool(config["model_config"].get("train_anchors", True)))
     scheduler = (make_lr_scheduler(tc.get("lr_scheduler_config"), base_lr)
@@ -140,7 +166,9 @@ def fit(args, pipeline, train_dl, eval_dl):
     eval_interval epochs (with --map_eval, where the CLI has it), keep the
     best model by the pipeline's eval loss, snapshot every
     checkpoint_interval epochs, write the metrics CSVs and plots. Returns
-    the pipeline."""
+    the pipeline. Under data parallelism every rank runs the loop, the
+    mAP pass runs on rank 0 alone, and only rank 0 writes."""
+    from .parallel.mesh import process_is_primary
     from .utils.profiling import trace
 
     # seeded from restored history, so a resumed run keeps its best model
@@ -156,7 +184,7 @@ def fit(args, pipeline, train_dl, eval_dl):
             pipeline.train(train_dl, verbose=verbose, **train_kw)
         if ((epoch + 1) % args.eval_interval == 0) or (epoch + 1 == args.epochs):
             metrics = pipeline.evaluate(eval_dl, verbose=verbose)
-            if getattr(args, "map_eval", False):
+            if getattr(args, "map_eval", False) and process_is_primary():
                 from .tools.eval_harness import evaluate_pipeline_map
 
                 map_res = evaluate_pipeline_map(pipeline, eval_dl.dataset,
@@ -188,7 +216,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_verbose", action="store_true", help="Reduce training output verbosity")
     parser.add_argument("--lr_schedule", action="store_true", help="Use learning rate scheduler")
     parser.add_argument("--lr_schedule_interval", type=int, default=1, metavar="", help="Number of epochs before lr scheduling")
-    parser.add_argument("--use_ddp", action="store_true", help="Data-parallel training over all visible devices (not in the port yet)")
+    parser.add_argument("--use_ddp", action="store_true", help="Data-parallel training, one process per device (launch with torchrun)")
     parser.add_argument("--checkpoint_path", type=str, default="", metavar="", help="Resume from this checkpoint")
     parser.add_argument("--config_path", type=str, default="configs/detection/config.yaml", metavar="", help="Config YAML path")
     parser.add_argument("--anchors_path", type=str, default="configs/detection/anchors.yaml", metavar="", help="Anchors YAML path")
@@ -203,9 +231,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt=LOG_DATE_FORMAT)
     args = build_parser().parse_args(argv)
     np.random.seed(42)
+    from .parallel.mesh import shutdown_distributed
     from .utils import load_yaml
 
-    return run(args, load_yaml(args.config_path), args.config_path, args.anchors_path)
+    try:
+        return run(args, load_yaml(args.config_path), args.config_path, args.anchors_path)
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

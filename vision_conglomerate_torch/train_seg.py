@@ -13,8 +13,9 @@ Auto-anchors read the polygons' boxes and may rewrite the file given as
 --anchors_path, and no other. `overlap_masks` is read from train_config,
 else from loss_config (default true). Without img_config.mask_scale_factor
 the masks are stored at the protos' size (img_wh // 4). `model_config.remat`
-is on by default at batch >= 32. `--use_ddp` is not in the port yet and
-raises (ROADMAP §A.8).
+is on by default at batch >= 32. `--use_ddp` trains data-parallel under
+torchrun, as `train_det` does (the global batch, the lr scaled by the
+number of ranks, anchors from rank 0, writes on rank 0).
 """
 import argparse
 import logging
@@ -22,7 +23,8 @@ import os
 
 import numpy as np
 
-from .train_det import LOG_DATE_FORMAT, LOG_FORMAT, fit, make_dataloader
+from .train_det import (LOG_DATE_FORMAT, LOG_FORMAT, fit, make_dataloader, on_primary,
+                        setup_device)
 
 logger = logging.getLogger(__name__)
 
@@ -70,29 +72,29 @@ def build(args, config, config_path, anchors_path):
     """(pipeline, train loader, eval loader) as `run` uses them."""
     import torch
 
-    from .device import resolve_device
     from .models import SegmentationNet
     from .tools.make_anchors import generate_anchors_and_class_weights
     from .train.base import resolve_remat_default
     from .train.lr_schedule import make_lr_scheduler
     from .train.optim import make_optimizer
     from .train.segmentation_trainer import TrainSegmentationPipeline
+    from .parallel.mesh import world_size
     from .utils import load_yaml
 
-    if args.use_ddp:
-        raise NotImplementedError("--use_ddp is not in the port yet (ROADMAP §A.8)")
-    resolve_remat_default(config["model_config"], args.batch_size)
-    dev = resolve_device(args.device)
+    resolve_remat_default(config["model_config"], args.batch_size)  # the global batch
+    dev = setup_device(args)
 
     tc = config["train_config"]
     train_ds = make_dataset(config, "train")
     eval_ds = make_dataset(config, "valid")
-    train_dl = make_dataloader(train_ds, args.batch_size, config)
-    eval_dl = make_dataloader(eval_ds, args.batch_size, config, shuffle=False)
+    train_dl = make_dataloader(train_ds, args.batch_size, config, shard=args.use_ddp)
+    eval_dl = make_dataloader(eval_ds, args.batch_size, config, shuffle=False,
+                              shard=args.use_ddp)
 
     auto_cfg = dict(config.get("auto_anchors_config", {}) or {})
     update_cfg = auto_cfg.pop("update_anchors_cfg", True)
-    anchors_arr, class_weights = generate_anchors_and_class_weights(
+    anchors_arr, class_weights = on_primary(
+        generate_anchors_and_class_weights,
         os.path.join(tc["data_path"], "train"), load_yaml(anchors_path)["anchors"],
         anchors_path=anchors_path, verbose=not args.no_verbose,
         update_anchors_cfg=update_cfg, from_polygons=True, **auto_cfg)
@@ -105,8 +107,8 @@ def build(args, config, config_path, anchors_path):
     opt_cfg = dict(tc["optimizer_config"])
     if getattr(args, "lr", None):
         opt_cfg["lr"] = float(args.lr)
-    n_devices = 1  # the lr scales by the device count, as in the JAX CLI
-    opt_cfg["lr"] = float(opt_cfg.get("lr", 1e-3)) * n_devices
+    # the lr scales by the device count, as in the JAX CLI
+    opt_cfg["lr"] = float(opt_cfg.get("lr", 1e-3)) * world_size()
     optimizer, base_lr = make_optimizer(
         opt_cfg, model, train_anchors=bool(config["model_config"].get("train_anchors", True)))
     scheduler = (make_lr_scheduler(tc.get("lr_scheduler_config"), base_lr)
@@ -136,7 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_verbose", action="store_true", help="Reduce training output verbosity")
     parser.add_argument("--lr_schedule", action="store_true", help="Use learning rate scheduler")
     parser.add_argument("--lr_schedule_interval", type=int, default=1, metavar="", help="Number of epochs before lr scheduling")
-    parser.add_argument("--use_ddp", action="store_true", help="Data-parallel training over all visible devices (not in the port yet)")
+    parser.add_argument("--use_ddp", action="store_true", help="Data-parallel training, one process per device (launch with torchrun)")
     parser.add_argument("--checkpoint_path", type=str, default="", metavar="", help="Resume from this checkpoint")
     parser.add_argument("--config_path", type=str, default="configs/segmentation/config.yaml", metavar="", help="Config YAML path")
     parser.add_argument("--anchors_path", type=str, default="configs/segmentation/anchors.yaml", metavar="", help="Anchors YAML path")
@@ -149,9 +151,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt=LOG_DATE_FORMAT)
     args = build_parser().parse_args(argv)
     np.random.seed(42)
+    from .parallel.mesh import shutdown_distributed
     from .utils import load_yaml
 
-    return run(args, load_yaml(args.config_path), args.config_path, args.anchors_path)
+    try:
+        return run(args, load_yaml(args.config_path), args.config_path, args.anchors_path)
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -14,17 +14,18 @@ precision, recall, f1) and plots, saved_model/tracknet/best_model/
 TrackNet.ckpt.tar (lowest eval loss) with its config/config.yaml, and
 snapshots under saved_model/tracknet/checkpoints/. The optimizer and
 schedule come from the config (the shipped one: Adadelta, lr 1.0,
-CosineAnnealingWarmRestarts with --lr_schedule); the lr is scaled by the
-device count (1). `model_config.remat`, on by default at batch >= 32,
-recomputes each conv in the backward pass. `--use_ddp` is not in the port
-yet and raises (ROADMAP §A.8).
+CosineAnnealingWarmRestarts with --lr_schedule). `model_config.remat`, on
+by default at batch >= 32, recomputes each conv in the backward pass.
+`--use_ddp` trains data-parallel under torchrun, as `train_det` does: the
+global batch, the lr scaled by the number of ranks (the JAX CLI's device
+count), writes on rank 0.
 """
 import argparse
 import logging
 
 import numpy as np
 
-from .train_det import LOG_DATE_FORMAT, LOG_FORMAT
+from .train_det import LOG_DATE_FORMAT, LOG_FORMAT, setup_device
 
 logger = logging.getLogger(__name__)
 
@@ -49,26 +50,24 @@ def build(args, config, config_path):
     import torch
 
     from .data.loader import DataLoader
-    from .device import resolve_device
     from .models import TrackNet
     from .train.base import resolve_remat_default
     from .train.lr_schedule import make_lr_scheduler
     from .train.optim import make_optimizer
+    from .parallel.mesh import world_size
     from .train.tracknet_trainer import TrainTrackNetPipeline
 
-    if args.use_ddp:
-        raise NotImplementedError("--use_ddp is not in the port yet (ROADMAP §A.8)")
     mc = config["model_config"]
-    resolve_remat_default(mc, args.batch_size)
-    dev = resolve_device(args.device)
+    resolve_remat_default(mc, args.batch_size)  # the global batch
+    dev = setup_device(args)
     tc = config["train_config"]
     train_ds, eval_ds = make_datasets(config, cache=args.cache_data)
     workers = int((tc.get("dataloader_config", {}) or {}).get("num_workers", 8) or 8)
     shuffle = bool((tc.get("dataloader_config", {}) or {}).get("shuffle", True))
     train_dl = DataLoader(train_ds, args.batch_size, shuffle=shuffle, num_workers=workers,
-                          drop_last=True)
+                          drop_last=True, shard=args.use_ddp)
     eval_dl = DataLoader(eval_ds, args.batch_size, shuffle=False, pad_last="wrap",
-                         num_workers=workers)
+                         num_workers=workers, shard=args.use_ddp)
 
     dtype = torch.bfloat16 if mc.get("dtype") == "bfloat16" else torch.float32
     num_stacks = int(tc["img_config"].get("num_stacks", 3))
@@ -76,8 +75,8 @@ def build(args, config, config_path):
     opt_cfg = dict(tc["optimizer_config"])
     if getattr(args, "lr", None):
         opt_cfg["lr"] = float(args.lr)
-    n_devices = 1  # the lr scales by the device count, as in the JAX CLI
-    opt_cfg["lr"] = float(opt_cfg.get("lr", 1.0)) * n_devices
+    # the lr scales by the device count, as in the JAX CLI
+    opt_cfg["lr"] = float(opt_cfg.get("lr", 1.0)) * world_size()
     optimizer, base_lr = make_optimizer(opt_cfg, model)
     scheduler = (make_lr_scheduler(tc.get("lr_scheduler_config"), base_lr)
                  if args.lr_schedule else None)
@@ -115,7 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_verbose", action="store_true", help="Reduce training output verbosity")
     parser.add_argument("--lr_schedule", action="store_true", help="Use learning rate scheduler")
     parser.add_argument("--lr_schedule_interval", type=int, default=1, metavar="", help="Number of epochs before lr scheduling")
-    parser.add_argument("--use_ddp", action="store_true", help="Data-parallel training over all visible devices (not in the port yet)")
+    parser.add_argument("--use_ddp", action="store_true", help="Data-parallel training, one process per device (launch with torchrun)")
     parser.add_argument("--checkpoint_path", type=str, default="", metavar="", help="Resume from this checkpoint")
     parser.add_argument("--config_path", type=str, default="configs/tracknet/config.yaml", metavar="", help="Config YAML path")
     parser.add_argument("--lr", type=float, default=0.0, metavar="", help="Override optimizer_config.lr (still scaled by device count); 0 = use config")
@@ -128,9 +127,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt=LOG_DATE_FORMAT)
     args = build_parser().parse_args(argv)
     np.random.seed(42)
+    from .parallel.mesh import shutdown_distributed
     from .utils import load_yaml
 
-    return run(args, load_yaml(args.config_path), args.config_path)
+    try:
+        return run(args, load_yaml(args.config_path), args.config_path)
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

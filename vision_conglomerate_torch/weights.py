@@ -23,7 +23,7 @@ as the port's own copy):
 `convert_torch_state_dict` gives the same tree from a port state_dict);
 `flax_to_state_dict` is its inverse.
 """
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,14 +128,16 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (key,), val
 
 
-def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(variables: Dict[str, Any],
+                       dtype: Optional[np.dtype] = np.float32) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} of numpy (or array-like) leaves ->
-    a port state_dict of f32 CPU tensors (an int8 form's q_kernel stays
-    int8). BatchNorm modules get a `num_batches_tracked` of 0."""
+    a port state_dict of CPU tensors in `dtype` (None keeps each leaf's own;
+    an int8 form's q_kernel stays int8). BatchNorm modules get a
+    `num_batches_tracked` of 0."""
     state: Dict[str, torch.Tensor] = {}
 
     def put(key: str, arr):
-        state[key] = torch.from_numpy(np.array(_to_np(arr), dtype=np.float32))
+        state[key] = torch.from_numpy(np.array(_to_np(arr), dtype=dtype))
 
     for path, val in _leaves(variables.get("params", {})):
         mod, leaf = path[:-1], path[-1]
