@@ -34,7 +34,17 @@ Phases (any failure exits non-zero; nothing is caught):
    max(bytes / 3.35 TB/s, bf16 FLOPs / 989 TFLOP/s) of the H100 SXM. Each
    shape's line also gives the achieved rate (TFLOP/s for the conv, TB/s
    for the matmul), the multiples of the bound and of the library time,
-   and the output tile the C launcher chose.
+   and the output tile the C launcher chose, and for a conv the path it took
+   (vector or element, by the library's own rule, held equal to the rule
+   the wrapper counts by). Every shape of a serve path must take the vector
+   path; only the ragged shapes take the element path. Then the narrow
+   convs (NARROW_CONVS: TrackNet's enc_0, dec_7 and dec_8 at batch 32, the
+   s2d stem at batch 4), which the serve form pads with zero channels
+   (nn/channel_pad.py), in bf16 and s8: the padded launch against the
+   unpadded one (the element path) and the plain version, the padded
+   output channels zero, padded vs unpadded within the kernel limits (s8:
+   bit for bit), timed beside cuDNN (bf16) or torch._int_mm (s8) on the
+   unpadded conv and the unpadded conv's bound.
 
 4. video: a 1280x720 clip of 48 frames (two shapes sliding on disjoint
    lanes over a fixed textured background, from SEED) is written with cv2
@@ -130,7 +140,9 @@ Phases (any failure exits non-zero; nothing is caught):
    folder of JPEGs at batch 8; the conv3x3 counter is zeroed before and
    must have risen by 18 a batch after, and a global forward hook records
    the shape of every launch of that run (batches of 32, 8 and the 6-window
-   tails); video.mp4 must hold 40 frames and output.csv [frame, x, y, r]
+   tails: the channel-padded serve form, enc_0 over the 16-channel frame
+   stack, dec_7 -> dec_8 over 128); video.mp4 must hold 40 frames and
+   output.csv [frame, x, y, r]
    rows of the 38 windows only. Warm frames/s at batch 32: (40 - 16)
    frames over the difference of a 40- and a 16-frame call, twice. Card
    bf16 vs CPU f32 logits of the first 2 windows of a batch of 32 within
@@ -193,7 +205,8 @@ Phases (any failure exits non-zero; nothing is caught):
    limit, |int8 - bf16| (card) within INT8_EVAL_GAP, the s8 conv launched.
 27. s8 kernels: as phase 3, every s8 shape of the five int8 serve paths
    (TrackNet's at batch 32 and its 6-window tail) and ragged and
-   element-path shapes (Cin or K 8 mod 16, Cin 9 and 126), on random int8
+   element-path shapes (Cin or K 8 mod 16, Cin 9 and 126 at small maps;
+   the serve paths pad these), on random int8
    operands against the plain version (exact f64 sums, the f32 epilogue)
    within |k - p| <= S8_RTOL |p| + S8_ATOL, one bf16 ulp; times of the
    kernel, the plain version and the library call (torch._int_mm on the
@@ -243,7 +256,8 @@ Phases (any failure exits non-zero; nothing is caught):
    images at batch 4 as phase 2 does: both counters zeroed before and
    risen after by the forward's launches a batch (the s2d stem, Cin 12,
    and BasicHead's stem_layer run on conv3x3; ResNet's convs keep
-   eval-mode BatchNorm on cuDNN), card vs CPU within ALT_MODEL_LIMITS.
+   eval-mode BatchNorm on cuDNN; the s2d rearrangement writes 16
+   channels, 4 of them zero), card vs CPU within ALT_MODEL_LIMITS.
 34. serve-fast decode: ops/serve_decode.decode_and_postprocess on the
    card on one batch's raw fields of resnet_basichead (BasicHead's packed
    map) against the runner's decode + postprocess_detections: the same
@@ -254,7 +268,8 @@ Phases (any failure exits non-zero; nothing is caught):
    epochs: the artifacts, the saved config keeping the alternate keys;
    one step card vs CPU of both nets as phase 6 (TRAIN_LIMITS).
 36. alternates int8 serve: phase 23 for both nets (ALT_INT8_LIMITS; no
-   warm rate): the s2d stem runs on the s8 conv kernel's element path.
+   warm rate): the s2d stem runs on the s8 conv kernel over the 16
+   channels the quantize pass writes.
 37. alternates eval: eval_det on the trained resnet_basichead best_model,
    card and CPU, as phase 9.
 38. ddp train: `torchrun --standalone --nproc_per_node 1 -m
@@ -276,6 +291,9 @@ Phases (any failure exits non-zero; nothing is caught):
    world of one on a free local port) at the shipped TrackNet config on
    phase 17's clips, batch 16, 2 epochs: finite losses, the artifacts, the
    lr times the world size.
+Every phase group but the kernel checks is gated at zero conv3x3 and s8
+conv launches on the element path (the wrappers' `element_launches`
+counters): every serve path's narrow channel counts are padded.
 decode_backend "native" has no phase: the H100 machine has g++ but not the
 libjpeg and libpng headers (jpeglib.h, png.h), so csrc/vct_data.cc cannot
 build there; the CPU tests hold it (tests/test_torch_native_decode.py).
@@ -467,11 +485,28 @@ def check(cond: bool, msg: str):
 
 
 @contextlib.contextmanager
-def phase_clock(label: str):
-    """Prints the host seconds the phases under `label` took."""
+def phase_clock(label: str, gate: bool = True):
+    """Prints the host seconds the phases under `label` took. With `gate`
+    (every phase group but the kernel checks), fails if a conv3x3 or s8
+    conv launch inside took the kernels' element path: the serve form pads
+    every narrow channel count (nn/channel_pad.py)."""
+    before = read_element_launches()
     t0 = time.time()
     yield
     print(f"phase time: {label} {time.time() - t0:.1f} s (host clock)")
+    if gate:
+        after = read_element_launches()
+        check(after == before, f"{label}: conv launches on the element path {before} -> {after}")
+
+
+def read_element_launches():
+    """{kernel: launches on the element path so far} of the two conv
+    kernels (never zeroed)."""
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
+    from vision_conglomerate_torch.ops.int8 import conv3x3_s8_bias_act
+
+    return {"conv3x3": conv3x3_bias_act.element_launches,
+            "conv3x3_s8": conv3x3_s8_bias_act.element_launches}
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -593,9 +628,11 @@ def serve(config, ckpt, img_dir, storage, task="detection", quantize=None):
 
 
 def kernel_conv(m):
-    """(route, conv) of a deploy-form module whose conv runs on a kernel,
-    else None."""
+    """(route, Cout the kernel writes) of a deploy-form module whose conv
+    runs on a kernel, else None. Cout is the channel-padded one where the
+    serve form pads it (nn/channel_pad.py: TrackNet's dec_7)."""
     from vision_conglomerate_torch.nn.blocks import ConvBNorm, RepVGGBlock, kernel_route
+    from vision_conglomerate_torch.nn.channel_pad import serve_conv_weights
 
     conv = None
     if isinstance(m, ConvBNorm) and m.folded:
@@ -603,7 +640,7 @@ def kernel_conv(m):
     elif isinstance(m, RepVGGBlock) and m.deploy:
         conv = getattr(m, "conv_reparam", None)
     route = conv is not None and kernel_route(conv, m.activation)
-    return (route, conv) if route else None
+    return (route, serve_conv_weights(m, conv)[0].shape[0]) if route else None
 
 
 def record_kernel_shapes(model):
@@ -615,7 +652,7 @@ def record_kernel_shapes(model):
         if routed:
             handles.append(m.register_forward_hook(
                 lambda mod, inp, out, r=routed[0], c=routed[1]: seen.append(
-                    (r, tuple(inp[0].shape), c.out_channels, mod.activation))))
+                    (r, tuple(inp[0].shape), c, mod.activation))))
     return seen, handles
 
 
@@ -630,7 +667,7 @@ def recording_kernel_shapes():
     def hook(mod, inp, out):
         routed = kernel_conv(mod)
         if routed:
-            seen.append((routed[0], tuple(inp[0].shape), routed[1].out_channels, mod.activation))
+            seen.append((routed[0], tuple(inp[0].shape), routed[1], mod.activation))
         elif int8_conv(mod):
             seen.append(int8_conv(mod, tuple(inp[0].shape)))
 
@@ -787,6 +824,23 @@ def launcher_tile(route, m, n, k):
     return _cuda.tile(lib, name, m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
+def conv_path(route, x, w_hwio):
+    """"vector" or "element": the path of a conv kernel launch on NHWC x
+    and HWIO w, by the library's own rule (`<name>_vector`, igemm_sm90.cuh
+    vector_path), held equal to the rule the wrapper counts element-path
+    launches by (ops.conv3x3.element_path)."""
+    from vision_conglomerate_torch.ops import _cuda, conv3x3, int8
+
+    name = {**KERNELS, **S8_KERNELS}[route]["name"]
+    lib = _cuda.load(name, conv3x3._ARGTYPES if route == "conv3x3" else int8._CONV_ARGTYPES, 0)
+    wk = w_hwio.permute(3, 0, 1, 2).contiguous()  # what the wrapper passes
+    vector = getattr(lib, f"{name}_vector")(x.data_ptr(), wk.data_ptr(), x.shape[-1])
+    element = conv3x3.element_path(x, wk, 16 if route == "conv3x3_s8" else 8)
+    check(bool(vector) != element, f"{route} at {tuple(x.shape)}: the library's vector path "
+                                   f"{vector}, the wrapper's element path {element}")
+    return "element" if element else "vector"
+
+
 def run_case(route, shape, cout, act, g):
     from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
     from vision_conglomerate_torch.ops.fused_matmul import (
@@ -827,7 +881,8 @@ def run_case(route, shape, cout, act, g):
     return dict(route=route, shape=list(shape), cout=cout, act=act, ok=ok,
                 max_abs_err=err.max().item(), ms=device_ms(kern), plain_ms=device_ms(plain),
                 library_ms=device_ms(lib), bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
-                tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)))
+                tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)),
+                path=None if route == "matmul" else conv_path(route, x, wt))
 
 
 def run_s8_case(route, shape, cout, act, g):
@@ -886,7 +941,8 @@ def run_s8_case(route, shape, cout, act, g):
                 max_abs_err=err.max().item(), ms=device_ms(kern),
                 plain_ms=device_ms(plain, iters=1), library_ms=library,
                 bound_ms=bnd, bound_by=by, bytes=nbytes, flops=ops,
-                tile=list(launcher_tile(route, m, cout, k)))
+                tile=list(launcher_tile(route, m, cout, k)),
+                path=None if taps == 1 else conv_path(route, x, w_hwio))
 
 
 def kernel_phase(paths, extra=None, kernels=KERNELS, runner=run_case, ragged=RAGGED,
@@ -918,13 +974,17 @@ def kernel_phase(paths, extra=None, kernels=KERNELS, runner=run_case, ragged=RAG
         uses = uses + " a batch" if uses else extra.get((route, shape, cout, act), "ragged")
         lib = (f"{r['ms'] / r['library_ms']:.2f}x library ({r['library_ms']:.4f})"
                if r["library_ms"] else "no library time")
+        path = f", {r['path']} path" if r["path"] else ""
         print(f"kernel {kernels[route]['name']} {desc} ({uses}): "
               f"{r['ms']:.4f} ms = {rate}, {r['ms'] / r['bound_ms']:.1f}x bound "
               f"({r['bound_ms']:.4f} by {r['bound_by']}), {lib}, "
-              f"plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}, "
+              f"plain {r['plain_ms']:.4f}, tile {r['tile'][0]}x{r['tile'][1]}{path}, "
               f"max |err| {r['max_abs_err']:.3g} {'ok' if r['ok'] else 'MISMATCH'}")
     for r in rows:
         check(r["ok"], f"{r['route']} kernel disagrees with its plain version at {r['shape']}")
+        check(r["path"] != "element"
+              or (r["route"], tuple(r["shape"]), r["cout"], r["act"]) in ragged,
+              f"{r['route']} at {r['shape']} -> {r['cout']}: a serve shape on the element path")
     summary = []
     for route, meta in kernels.items():
         mine = [r for r in rows if r["route"] == route]
@@ -2364,6 +2424,117 @@ def big_conv_case(g):
                 bound_by=by, max_abs_err=err.max().item(), output_elements=b * h * w * cout)
 
 
+# The convs the serve form pads with zero channels (nn/channel_pad.py), at
+# their serve shapes as the model has them: (NCHW input, Cout, activation)
+NARROW_CONVS = {"enc_0": ((32, 9, 352, 640), 64, "relu"),
+                "dec_7": ((32, 384, 176, 320), 126, "relu"),
+                "dec_8": ((32, 126, 176, 320), 128, "relu"),
+                "s2d_stem": ((BATCH, 12, 320, 320), 64, "silu")}
+
+
+def narrow_case(name, dtype, g):
+    """One NARROW_CONVS conv in bf16 or s8: the padded launch of the serve
+    form (Cin, and dec_7's Cout, zero-padded to a multiple of 16) against
+    the same conv unpadded, and timed beside it, cuDNN (bf16) or
+    torch._int_mm on the im2col (s8) of the unpadded conv, and the bound of
+    the unpadded conv's own work. Gated: both launches agree with the
+    plain version (bf16 KERNEL_RTOL/ATOL, s8 one bf16 ulp), the padded
+    output channels are zero, padded vs unpadded within the same limits
+    (s8: bit for bit, the same exact sums and epilogue), and by the
+    wrapper's counter the padded launch takes the vector path and the
+    unpadded one the element path where its Cin is narrow (dec_7's is
+    not: its unpadded Cout of 126 loses only the 16-byte stores)."""
+    from vision_conglomerate_torch.nn.channel_pad import padded
+    from vision_conglomerate_torch.ops import int8
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
+    from vision_conglomerate_torch.ops.fused_matmul import apply_activation
+
+    (b, cin, h, w), cout, act = NARROW_CONVS[name]
+    cin_p, cout_p = padded(cin), padded(cout)
+    m = b * h * w
+    dev = "cuda"
+    bias = torch.randn(cout, device=dev, generator=g)
+    bias_p = F.pad(bias, (0, cout_p - cout))
+    hwio = lambda t: t.permute(1, 2, 3, 0)  # noqa: E731  (Cout, 3, 3, Cin) -> HWIO view
+    pad_w = lambda t: F.pad(t, (0, cin_p - cin, 0, 0, 0, 0, 0, cout_p - cout))  # noqa: E731
+    if dtype == "bf16":
+        x = torch.randn(b, h, w, cin, device=dev, generator=g).bfloat16()
+        wk = (torch.randn(cout, 3, 3, cin, device=dev, generator=g) / (9 * cin) ** 0.5).bfloat16()
+        wide = (F.pad(x, (0, cin_p - cin)), hwio(pad_w(wk)), bias_p)
+        fn, counter = conv3x3_bias_act, conv3x3_bias_act
+        want = conv3x3_bias_act_plain(x, hwio(wk), bias, act).float()
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), wk.permute(0, 3, 1, 2)
+        lib = lambda: apply_activation(  # noqa: E731
+            F.conv2d(x_nchw, w_oihw, bias.bfloat16(), padding=1), act)
+        args = (x, hwio(wk), bias)
+        nbytes = 2 * (m * cin + 9 * cin * cout + m * cout) + 4 * cout
+        bnd, by = bound_ms(nbytes, 2 * m * 9 * cin * cout)
+        within = lambda d, ref: d <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()  # noqa: E731
+    else:
+        x = torch.randint(-127, 128, (b, h, w, cin), device=dev, generator=g, dtype=torch.int8)
+        wk = torch.randint(-127, 128, (cout, 3, 3, cin), device=dev, generator=g,
+                           dtype=torch.int8)
+        scale = torch.rand(cout, device=dev, generator=g) * (4.0 / (127 * 127 * (9 * cin) ** 0.5))
+        wide = (F.pad(x, (0, cin_p - cin)), hwio(pad_w(wk)),
+                F.pad(scale, (0, cout_p - cout), value=1.0), bias_p)
+        fn, counter = int8.conv3x3_s8_bias_act, int8.conv3x3_s8_bias_act
+        want = int8.conv3x3_s8_bias_act_plain(x, hwio(wk), scale, bias, act,
+                                              torch.bfloat16).float()
+        cols = int8.im2col_s8(x, (3, 3), (1, 1), (1, 1))
+        wc = int8.im2col_weights(hwio(wk), cols.shape[1])
+        lib = lambda: int8.dequantize(  # noqa: E731
+            torch._int_mm(cols, wc), scale, bias, act, torch.bfloat16)
+        args = (x, hwio(wk), scale, bias)
+        nbytes = m * cin + 9 * cin * cout + 2 * m * cout + 8 * cout
+        bnd, by = bound_ms(nbytes, 2 * m * 9 * cin * cout, PEAK_INT8_OPS)
+        within = lambda d, ref: d <= S8_ATOL + S8_RTOL * ref.abs()  # noqa: E731
+    narrow_cin = cin % (8 if dtype == "bf16" else 16) != 0
+    before = counter.element_launches
+    got_p = fn(*wide, act)
+    vector = counter.element_launches == before
+    got = fn(*args, act)
+    element = counter.element_launches == before + 1
+    path = "element" if element else "vector"
+    torch.cuda.synchronize()
+    real, pad_out = got_p[..., :cout].float(), got_p[..., cout:]
+    d_p, d_e, d_pe = ((real - want).abs(), (got.float() - want).abs(),
+                      (real - got.float()).abs())
+    ok = bool(within(d_p, want).all() and within(d_e, want).all() and not pad_out.any()
+              and (within(d_pe, got.float()).all() if dtype == "bf16"
+                   else torch.equal(got_p[..., :cout], got)))
+    try:  # the yardstick only: cuBLAS takes no int8 GEMM of some shapes
+        library = device_ms(lib, iters=5)
+    except RuntimeError as e:
+        print(f"narrow {name} {dtype}: no library time ({str(e).splitlines()[0][:120]})")
+        library = None
+    row = dict(name=name, dtype=dtype, shape=[b, cin, h, w], cout=cout, act=act,
+               padded=[cin_p, cout_p], ms=device_ms(lambda: fn(*wide, act)),
+               element_ms=device_ms(lambda: fn(*args, act), iters=5), library_ms=library,
+               bound_ms=bnd, bound_by=by, max_abs_err=d_p.max().item(),
+               padded_vs_unpadded=d_pe.max().item(), ok=ok, unpadded_path=path)
+    lib_name = "cuDNN" if dtype == "bf16" else "torch._int_mm"
+    lib_txt = (f"{row['ms'] / library:.2f}x {lib_name} ({library:.4f})" if library
+               else f"no {lib_name} time")
+    print(f"narrow {name} {dtype} B={b} {h}x{w} {cin}->{cout}: padded {cin_p}->{cout_p} "
+          f"{row['ms']:.4f} ms, {row['ms'] / bnd:.1f}x bound ({bnd:.4f} by {by}, the unpadded "
+          f"conv), {lib_txt}; unpadded {row['element_ms']:.4f} ms "
+          f"({row['element_ms'] / row['ms']:.2f}x padded); max |err| {row['max_abs_err']:.3g}, "
+          f"padded vs unpadded {row['padded_vs_unpadded']:.3g}; paths: padded "
+          f"{'vector' if vector else 'ELEMENT'}, unpadded {path} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"narrow {name} {dtype}: padded and unpadded launches disagree")
+    check(vector and element == narrow_cin,
+          f"narrow {name} {dtype}: the padded launch {'vector' if vector else 'element'}, the "
+          f"unpadded one {path}, want vector and {'element' if narrow_cin else 'vector'}")
+    return row
+
+
+def narrow_phase(g):
+    """narrow_case for every NARROW_CONVS conv in bf16 and s8."""
+    rows = [narrow_case(name, dtype, g) for dtype in ("bf16", "s8") for name in NARROW_CONVS]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def write_tn_train_data(root, name=TN_BASE):
     """TN_CLIPS clips of TN_CLIP_FRAMES 1280x720 JPEG frames under
     data/game1/Clip*/ with Label.csv (the ball hidden, visibility 0, in
@@ -2726,19 +2897,22 @@ def int8_conv(m, shape=None):
     activation) as recording_kernel_shapes lists a launch: "matmul_s8" or
     "conv3x3_s8" where an s8 kernel computes the conv, else "im2col", whose
     GEMM launches the s8 matmul at (1, K, M, 1): M = B*Ho*Wo rows, K the
-    patch width padded to a multiple of 16. True without `shape`; None for
-    every other module."""
+    patch width padded to a multiple of 16. The kernel's Cin and Cout are
+    the channel-padded ones where the serve form pads them (the quantize
+    pass writes the padded map). True without `shape`; None for every
+    other module."""
     from vision_conglomerate_torch.nn.blocks import geometry_route
+    from vision_conglomerate_torch.nn.channel_pad import serve_q_params
 
     if not hasattr(m, "q_kernel"):
         return None
     if shape is None:
         return True
     stride, padding = m.q_geometry
-    cout, cin, kh, kw = m.q_kernel.shape
+    cout, cin, kh, kw = serve_q_params(m)[0].shape
     route = geometry_route((kh, kw), stride, padding, m.activation)
     if route:
-        return f"{route}_s8", shape, cout, m.activation
+        return f"{route}_s8", (shape[0], cin) + tuple(shape[2:]), cout, m.activation
     b, _, h, w = shape
     ho = (h + 2 * padding[0] - kh) // stride[0] + 1
     wo = (w + 2 * padding[1] - kw) // stride[1] + 1
@@ -2755,18 +2929,20 @@ def quantize_on(model, x, **forward_kw):
     model a loader built with quantize="int8"; returns the calibration
     absmax ({path: 0-d tensor})."""
     from vision_conglomerate_torch.nn.blocks import cast_conv_weights
+    from vision_conglomerate_torch.nn.channel_pad import pad_channels_
     from vision_conglomerate_torch.nn.quantize import collect_calibration, int8_quantize_
 
     absmax = collect_calibration(model, [x], **forward_kw)
     int8_quantize_(model, absmax)
-    cast_conv_weights(model, model.dtype)
+    pad_channels_(cast_conv_weights(model, model.dtype))
     return absmax
 
 
 def copy_int8(src, dst):
     """Put `dst` (the same net on the CPU, f32 weights) in `src`'s int8
-    form with `src`'s q parameters."""
+    form with `src`'s q parameters, channel-padded as the loaders pad."""
     from vision_conglomerate_torch.nn.blocks import set_int8_
+    from vision_conglomerate_torch.nn.channel_pad import pad_channels_
     from vision_conglomerate_torch.nn.quantize import quantizable_modules
 
     mods = quantizable_modules(dst)
@@ -2774,6 +2950,7 @@ def copy_int8(src, dst):
         if hasattr(m, "q_kernel"):
             set_int8_(mods[path], *(getattr(m, k).cpu() for k in
                                     ("q_kernel", "q_wscale", "q_xscale", "q_bias")))
+    pad_channels_(dst)
 
 
 def calibration_gap(card, cpu):
@@ -3833,7 +4010,7 @@ def main():
         ddp = ddp_phase(root)
     with tempfile.TemporaryDirectory() as root, phase_clock("tracknet ddp (41)"):
         tn_ddp = tn_ddp_phase(root)
-    with phase_clock("kernels (3)"):
+    with phase_clock("kernels (3)", gate=False):
         rows, summary = kernel_phase({
             "serve": (seen, launches), "seg_serve": (seg_seen, seg_serve["launches"]),
             "tracknet_serve": (tn_seen, tn_serve_res["launches"]),
@@ -3843,7 +4020,8 @@ def main():
             "s2d_serve": (s2d_seen, s2d_serve["launches"])},
             {**tn_extra, **tn_adv_extra})
         big = big_conv_case(torch.Generator(device="cuda").manual_seed(SEED))
-    with phase_clock("s8 kernels (27)"):
+        narrow = narrow_phase(torch.Generator(device="cuda").manual_seed(SEED))
+    with phase_clock("s8 kernels (27)", gate=False):
         tn_int8, tn_adv_int8 = tn_serve_res["int8"], tn_adv_serve["int8"]
 
         def s8_launches(res):
@@ -3877,7 +4055,8 @@ def main():
                        kp_serve=kp_serve, kp_video=kp_video, kp_int8_serve=kp_int8_serve,
                        kp_train=kp_train, alt_serve=alt_serve, s2d_serve=s2d_serve,
                        serve_fast=serve_fast, alt_int8_serve=alt_int8, s2d_int8_serve=s2d_int8,
-                       alt_train=alt_train, ddp=ddp, tracknet_ddp=tn_ddp, kernels=summary),
+                       alt_train=alt_train, ddp=ddp, tracknet_ddp=tn_ddp, narrow=narrow,
+                       kernels=summary),
                   f, indent=1,
                   default=str)
     print(json.dumps({"kernels": summary}))

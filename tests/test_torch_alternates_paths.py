@@ -141,7 +141,8 @@ def test_deploy_form_matches_jax_and_routes_as_designed(name, tmp_path, monkeypa
     """The serve loader's deploy form (BN folded into every ConvBNorm,
     RepVGG fused) against the JAX package's (deploy_transform under
     bn_folding + fused_pointwise), decoded to an og size. The convs that
-    reach the conv3x3 kernel: the s2d stem (Cin 12, 3x3/s1) and
+    reach the conv3x3 kernel: the s2d stem (Cin 12, 3x3/s1; the serve
+    form pads it to 16 with zero channels, nn/channel_pad.py) and
     BasicHead's stem_layer among them; ResNet's convs (their BatchNorms
     are `bnN` siblings, which neither package folds) and BasicHead's 1x1
     `conv` stay on PyTorch's conv."""
@@ -167,7 +168,7 @@ def test_deploy_form_matches_jax_and_routes_as_designed(name, tmp_path, monkeypa
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **NET_TOL)
     cins = sorted({s[-1] for s in calls})
     if name == "csp_s2d":
-        assert (2, 32, 32, 12) in calls  # the s2d stem
+        assert (2, 32, 32, 16) in calls  # the s2d stem, padded from 12 channels
         assert not hasattr(model.backbone.conv0, "norm")
     else:
         assert hasattr(model.backbone.bn1, "running_mean") and hasattr(model.backbone, "conv2")

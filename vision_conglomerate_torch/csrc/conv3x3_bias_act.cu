@@ -24,7 +24,9 @@
 // the bias and applies the activation in registers and stores bf16 with
 // 16-byte stores. The launcher takes 64 x 128 tiles for the deep convs (K >= 2048)
 // and 64 x 64 at the 20^2 and 40^2 maps otherwise. Cin not a multiple of 8
-// (Cin 3) takes element loads into the same ring.
+// takes synchronous element loads into the same ring; the serve form pads
+// TrackNet's enc_0 (Cin 9), dec_7 -> dec_8 (126) and the s2d stem (12) to
+// multiples of 16 at their producers, so no serve launch takes it.
 
 #include "igemm_sm90.cuh"
 
@@ -50,6 +52,12 @@ int conv3x3_bias_act_tile(int M, int N, int K, int sms, int* bm, int* bn) {
 int conv3x3_bias_act_bf16(const void* x, const void* w, const void* bias, void* y, int B, int H,
                           int W, int Cin, int Cout, int act, int sms, void* stream) {
   return igemm::launch<9>(x, w, bias, y, B * H * W, Cout, 9 * Cin, H, W, Cin, act, sms, stream);
+}
+
+// 1 where a launch on x and w (Cout, 3, 3, Cin) takes the vector path (W
+// by TMA, A by 16-byte cp.async), 0 where it takes the element path.
+int conv3x3_bias_act_vector(const void* x, const void* w, int Cin) {
+  return igemm::vector_path<__nv_bfloat16>(x, w, 9 * Cin, Cin);
 }
 
 const char* conv3x3_bias_act_error_string(int code) {

@@ -19,8 +19,10 @@
 // holds 128 values of K; its A tile is gathered with 16-byte cp.async
 // copies (16 channels of one tap: Cin % 16 == 0), the weight tile comes by
 // TMA (uint8 boxes of 128 columns), and four wgmma m64nNk32 s8 -> s32 run
-// a stage. Cin not a multiple of 16 (TrackNet's enc_0 with 9 and dec_8
-// with 126) takes element loads into the same ring. The epilogue reads the
+// a stage. Cin not a multiple of 16 takes synchronous element loads into
+// the same ring; the serve form pads TrackNet's enc_0 (Cin 9), dec_8 (126)
+// and the s2d stem (12) to 16 at their producers (the quantize pass writes
+// the padded map), so no serve launch takes it. The epilogue reads the
 // block's scales beside its biases. The tile choice is the bf16 kernel's.
 
 #include "igemm_sm90.cuh"
@@ -49,6 +51,12 @@ int conv3x3_s8_bias_act_s8(const void* x, const void* w, const void* scale, cons
                            void* stream) {
   return igemm::launch<9, int8_t>(x, w, bias, y, B * H * W, Cout, 9 * Cin, H, W, Cin, act, sms,
                                   stream, scale);
+}
+
+// 1 where a launch on x and w (Cout, 3, 3, Cin) takes the vector path (W
+// by TMA, A by 16-byte cp.async), 0 where it takes the element path.
+int conv3x3_s8_bias_act_vector(const void* x, const void* w, int Cin) {
+  return igemm::vector_path<int8_t>(x, w, 9 * Cin, Cin);
 }
 
 const char* conv3x3_s8_bias_act_error_string(int code) {

@@ -52,8 +52,11 @@
 // - Tiles: chosen per launch by choose_tile (see there).
 // - Where K or Cin is not a multiple of the values in 16 bytes (8 bf16, 16
 //   int8), or a pointer is not 16-byte aligned, neither TMA nor 16-byte
-//   copies apply: the same ring is filled with element loads and shared
-//   stores.
+//   copies apply: the same ring is filled with synchronous element loads
+//   and shared stores (`vector_path` false). No serve path launches it:
+//   the serve form pads the few narrow channel counts with zero channels
+//   at their producer (nn/channel_pad.py); the wrappers count the launches
+//   that take it.
 // - Indexing: the pixel row m, M, N, K and the TMA coordinates are 32-bit;
 //   element offsets into x and y are 64-bit, so the conv's input and
 //   output may hold 2^31 elements or more (TrackNet's full-resolution
@@ -653,18 +656,25 @@ int launch_ring(const Params<T>& p, cudaStream_t stream) {
 
 inline bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
+// True where a launch takes the vector path (W, and the matmul's A, by TMA;
+// the conv's A by 16-byte copies): K and C multiples of the values in 16
+// bytes, x and w 16-byte aligned. Otherwise it takes the element path.
+template <typename T>
+inline bool vector_path(const void* x, const void* w, int K, int C) {
+  constexpr int VALS = Operand<T>::VALS;
+  return K % VALS == 0 && C % VALS == 0 && aligned16(x) && aligned16(w);
+}
+
 // Launch on `stream` (of the current device); returns a CUDA error code:
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue if a
 // tensor map could not be made. `scale` is read by the int8 kernels only.
 template <int TAPS, typename T = __nv_bfloat16>
 int launch(const void* x, const void* w, const void* bias, void* y, int M, int N, int K, int H,
            int W, int C, int act, int sms, void* stream, const void* scale = nullptr) {
-  constexpr int VALS = Operand<T>::VALS;
   const Params<T> p{static_cast<const T*>(x), static_cast<const T*>(w),
                     static_cast<const float*>(bias), static_cast<const float*>(scale),
                     static_cast<__nv_bfloat16*>(y), M, N, K, H, W, C, act,
-                    K % VALS == 0 && C % VALS == 0 && aligned16(x) && aligned16(w),
-                    N % 8 == 0 && aligned16(y)};
+                    vector_path<T>(x, w, K, C), N % 8 == 0 && aligned16(y)};
   const auto s = static_cast<cudaStream_t>(stream);
   const Tile t = choose_tile(M, N, K, sms);
   if (t.bm == 64 && t.bn == 128) return launch_ring<T, TAPS, 64, 128>(p, s);

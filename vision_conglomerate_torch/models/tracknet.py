@@ -19,6 +19,12 @@ package:
 Every conv is a stride-1 3x3 with ReLU, so in the deploy form (`folded`:
 BatchNorm folded by `nn.reparam.deploy_transform`) all 18 run on the
 conv3x3 kernel when their input lies on the card, `dec_13` included.
+Where `enc_0`'s input (3 * num_stacks frame channels) or the 126 of
+`dec_7` -> `dec_8` (at their width) is not a multiple of 16, the serve form
+pads them with zero channels (`nn.channel_pad`): the forward writes the
+frame stack with the padded channel count as it casts it, and dec_7
+writes the zero channels that dec_8 reads, so each conv takes the
+kernel's vector path.
 `config["remat"]` checkpoints each encoder and decoder conv but `dec_13`
 for the backward pass (`nn.blocks.stage`), as the JAX package wraps them
 in `maybe_remat`.
@@ -43,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import registry
+from ..nn import channel_pad
 from ..nn.blocks import ConvBNorm, stage
 from ..ops.resize import resize_nchw
 
@@ -76,6 +83,7 @@ class BaseTrackNetEncoder(nn.Module):
         for name, c in zip((n for s in self.STAGES for n in s), co):
             setattr(self, name, _conv(cin, c, folded, device))
             cin = c
+        channel_pad.mark(self.enc_0, cin=channel_pad.padded(in_channels))
         self.out_channels = (co[1], co[2], co[4], co[9])
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -112,6 +120,8 @@ class BaseTrackNetDecoder(nn.Module):
                 ("dec_11", co[4] + f0, co[5]), ("dec_12", co[5], co[6]))
         for name, cin, cout in plan:
             setattr(self, name, _conv(cin, cout, folded, device))
+        channel_pad.mark(self.dec_7, cout=channel_pad.padded(co[3]))
+        channel_pad.mark(self.dec_8, cin=channel_pad.padded(co[3]))
         self.dec_13 = _conv(co[6], out_channels, folded, device, no_batchnorm=True)
 
     def forward(self, fmaps: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -235,7 +245,9 @@ class TrackNet(nn.Module):
 
     def forward(self, x: torch.Tensor, inference: bool = False,
                 og_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        y = self.decoder(self.encoder(x.to(self.dtype)))
+        stem = getattr(self.encoder, "enc_0", None)  # the base encoder's first conv
+        cin = x.shape[1] if stem is None else channel_pad.in_channels(stem, x.shape[1])
+        y = self.decoder(self.encoder(channel_pad.widen(x, cin, self.dtype)))
         if inference:
             return heatmap_from_logits(y, og_size)
         return y

@@ -5,8 +5,11 @@ CSPNet gives four feature maps at strides 4/8/16/32. The stem is a
 6x6/s2/p2 conv, or with `space_to_depth_stem` a space-to-depth then a
 3x3/s1/p1 conv over 4x the channels; the downsamples are 3x3/s2 convs.
 The 6x6 stem and the downsamples stay on PyTorch's conv in every form; the
-s2d stem, folded, runs on the conv3x3 kernel. DeconvCSPNet takes four maps
-back up to full resolution (TrackNet's advanced architecture).
+s2d stem, folded, runs on the conv3x3 kernel. Where its 4x channels are
+not a multiple of 16 (12 for RGB), the serve form pads them
+(`nn.channel_pad`): the rearrangement writes the zero channels.
+DeconvCSPNet takes four maps back up to full resolution (TrackNet's
+advanced architecture).
 ResNetBackBone is the upstream's ResNet with two 7x7/s2 stems.
 """
 from typing import Optional, Sequence, Tuple
@@ -15,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import channel_pad
 from .blocks import (BatchNorm2d, C3Module, ConvBNorm, ConvBNormUpsample, channels8, conv2d,
                      depth_round, stage)
 
@@ -35,12 +39,20 @@ def cspnet_out_channels(width_multiple: float = 0.5,
     return (co[2], co[4], co[6], co[8])
 
 
-def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+def space_to_depth(x: torch.Tensor, channels: Optional[int] = None) -> torch.Tensor:
     """(B, C, H, W) -> (B, 4C, H/2, W/2), channel (dy * 2 + dx) * C + c
-    holding x[:, c, 2i + dy, 2j + dx] (the JAX package's NHWC order)."""
+    holding x[:, c, 2i + dy, 2j + dx] (the JAX package's NHWC order). With
+    `channels` (> 4C: the padded serve form), channels_last with zero
+    channels up to that count (a zero fill, then one copy)."""
     b, c, h, w = x.shape
-    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
-    return x.reshape(b, 4 * c, h // 2, w // 2)
+    if channels is None or channels == 4 * c:
+        x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(b, 4 * c, h // 2, w // 2)
+    out = torch.zeros((b, h // 2, w // 2, channels), dtype=x.dtype, device=x.device)
+    # (b, h/2, w/2, dy, dx, c) view of the NHWC input into the first 4C
+    src = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    out[..., :4 * c].view(b, h // 2, w // 2, 2, 2, c).copy_(src)
+    return out.permute(0, 3, 1, 2)
 
 
 class CSPNet(nn.Module):
@@ -67,6 +79,7 @@ class CSPNet(nn.Module):
         self.space_to_depth_stem = space_to_depth_stem
         if space_to_depth_stem:
             self.conv0 = ConvBNorm(4 * in_channels, co[0], 3, 1, 1, **kw)
+            channel_pad.mark(self.conv0, cin=channel_pad.padded(4 * in_channels))
         else:
             self.conv0 = ConvBNorm(in_channels, co[0], 6, 2, 2, **kw)
         self.conv1 = ConvBNorm(co[0], co[1], 3, 2, 1, **kw)
@@ -86,7 +99,7 @@ class CSPNet(nn.Module):
             return stage(m, *a, remat=self.remat)
 
         if self.space_to_depth_stem:
-            x = space_to_depth(x)
+            x = space_to_depth(x, channel_pad.in_channels(self.conv0, 4 * x.shape[1]))
         out = self.drop(run(self.conv1, run(self.conv0, x)))
         fmap1 = run(self.c3_0, out)
         fmap2 = run(self.c3_1, self.drop(run(self.conv2, fmap1)))

@@ -26,6 +26,12 @@ its forward quantizes its input and runs the int8 conv
 `ops.int8.conv3x3_s8_bias_act`, every other conv on
 `ops.int8.conv_s8_bias_act`.
 
+Channel padding. A ConvBNorm marked with `pad_channels` (nn/channel_pad.py:
+TrackNet's enc_0, dec_7 and dec_8, CSPNet's space-to-depth stem) serves,
+once `channel_pad.pad_channels_` has run on the deploy form, with its
+zero-padded weights (`padded_*` non-persistent buffers), so that its conv
+takes the kernels' vector path.
+
 Numerics follow the JAX package: parameters are f32 and each conv casts its
 weight and bias to the activations' dtype at the call, so gradients land in
 f32; BatchNorm computes in f32 with flax's running-stat rule (`BatchNorm2d`).
@@ -53,6 +59,7 @@ from ..ops.fused_matmul import ACTIVATIONS, apply_activation, pointwise_conv_act
 from ..ops.int8 import (conv3x3_s8_bias_act, conv_s8_bias_act, int8_scale, matmul_s8_bias_act,
                         quantize_activation)
 from ..ops.resize import resize_nchw
+from .channel_pad import serve_conv_weights, serve_q_params
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -109,17 +116,23 @@ def kernel_route(conv: nn.Conv2d, activation: Optional[str]) -> Optional[str]:
     return geometry_route(conv.kernel_size, conv.stride, conv.padding, activation)
 
 
-def conv_bias_act(x: torch.Tensor, conv: nn.Conv2d, activation: Optional[str]) -> torch.Tensor:
+def conv_bias_act(x: torch.Tensor, conv: nn.Conv2d, activation: Optional[str],
+                  weight: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(conv(x) + b) for a conv with a bias: on the matmul or conv3x3
     kernel where `kernel_route` names one, else F.conv2d then the
     activation in x's dtype. The weight is cast to x's dtype (a no-op in
-    the serve form, whose weights are in the compute dtype already)."""
+    the serve form, whose weights are in the compute dtype already).
+    `weight` and `bias`, where given, replace the conv's on the kernel
+    route: the serve form's channel-padded ones (nn/channel_pad.py)."""
     route = kernel_route(conv, activation)
     if route is None:
         return apply_activation(conv2d(x, conv), activation)
-    w_hwio = conv.weight.to(x.dtype).permute(2, 3, 1, 0)
+    weight = conv.weight if weight is None else weight
+    bias = conv.bias if bias is None else bias
+    w_hwio = weight.to(x.dtype).permute(2, 3, 1, 0)
     fn = pointwise_conv_act if route == "matmul" else conv3x3_bias_act
-    return fn(_nhwc(x), w_hwio, conv.bias, activation).permute(0, 3, 1, 2)
+    return fn(_nhwc(x), w_hwio, bias, activation).permute(0, 3, 1, 2)
 
 
 def int8_conv_bias_act(x: torch.Tensor, module: nn.Module,
@@ -128,21 +141,23 @@ def int8_conv_bias_act(x: torch.Tensor, module: nn.Module,
     x_q = clamp(round(x_f32 / q_xscale)), the int8 conv with exact
     sums, then act(sum * (q_wscale * q_xscale) + q_bias) in f32, cast to
     x's dtype. 1x1/s1 convs run on the s8 matmul kernel, 3x3/s1 ones on
-    the s8 conv kernel, the others on `conv_s8_bias_act`."""
+    the s8 conv kernel, the others on `conv_s8_bias_act`. A channel-padded
+    module (nn/channel_pad.py) runs its padded buffers, and the quantize
+    pass writes the padded channel count."""
     stride, padding = module.q_geometry
-    w_hwio = module.q_kernel.permute(2, 3, 1, 0)
-    x_q = quantize_activation(_nhwc(x), module.q_xscale)
-    scale = int8_scale(module.q_wscale, module.q_xscale)
+    q_kernel, q_wscale, q_bias = serve_q_params(module)
+    w_hwio = q_kernel.permute(2, 3, 1, 0)
+    x_q = quantize_activation(_nhwc(x), module.q_xscale, q_kernel.shape[1])
+    scale = int8_scale(q_wscale, module.q_xscale)
     route = geometry_route(w_hwio.shape[:2], stride, padding, activation)
     if route == "matmul":
         b, h, w, cin = x_q.shape
         y = matmul_s8_bias_act(x_q.reshape(b * h * w, cin), w_hwio.reshape(cin, -1), scale,
-                               module.q_bias, activation, x.dtype).reshape(b, h, w, -1)
+                               q_bias, activation, x.dtype).reshape(b, h, w, -1)
     elif route == "conv3x3":
-        y = conv3x3_s8_bias_act(x_q, w_hwio, scale, module.q_bias, activation, x.dtype)
+        y = conv3x3_s8_bias_act(x_q, w_hwio, scale, q_bias, activation, x.dtype)
     else:
-        y = conv_s8_bias_act(x_q, w_hwio, scale, module.q_bias, stride, padding, activation,
-                             x.dtype)
+        y = conv_s8_bias_act(x_q, w_hwio, scale, q_bias, stride, padding, activation, x.dtype)
     return y.permute(0, 3, 1, 2)
 
 
@@ -265,7 +280,10 @@ class ConvBNorm(nn.Module):
 
     `no_batchnorm=True` is a conv with its bias, then the activation in the
     activations' dtype, with no BatchNorm (TrackNet's `dec_13`); its deploy
-    form (`folded=True`) is the same conv on the kernel route."""
+    form (`folded=True`) is the same conv on the kernel route.
+
+    `pad_channels`: None, or the (Cin, Cout) its deploy form serves with
+    zero channels added (set by the model, `channel_pad.mark`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
                  stride: IntPair = 1, padding: Optional[IntPair] = None,
@@ -277,6 +295,7 @@ class ConvBNorm(nn.Module):
         self.activation = activation
         self.folded = folded
         self.no_batchnorm = no_batchnorm
+        self.pad_channels = None
         self.conv = nn.Conv2d(in_channels, out_channels, k, _pair(stride), p,
                               bias=use_bias or folded, device=device)
         if not (folded or no_batchnorm):
@@ -286,7 +305,8 @@ class ConvBNorm(nn.Module):
         if hasattr(self, "q_kernel"):
             return int8_conv_bias_act(x, self, self.activation)
         if self.folded:
-            return conv_bias_act(x, self.conv, self.activation)
+            return conv_bias_act(x, self.conv, self.activation,
+                                 *serve_conv_weights(self, self.conv))
         if self.no_batchnorm:
             return apply_activation(conv2d(x, self.conv), self.activation)
         y = apply_activation(self.norm(conv2d(x, self.conv).float()), self.activation)

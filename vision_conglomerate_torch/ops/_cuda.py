@@ -104,6 +104,9 @@ def load(name: str, argtypes: Dict[str, List], device: int) -> ctypes.CDLL:
 
 # argtypes of each library's `<name>_tile(M, N, K, sms, *bm, *bn)`
 TILE_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+# argtypes of a conv library's `<name>_vector(x, w, Cin)`: 1 where a launch
+# takes the vector path, 0 where it takes the element path
+VECTOR_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int]
 
 
 def tile(lib: ctypes.CDLL, name: str, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:

@@ -19,8 +19,14 @@ flight while wgmma runs; bias and activation run on the accumulators in
 registers before 16-byte bf16 stores. The C launcher picks the output tile
 per shape.
 
+A Cin that is not a multiple of 8 (or an x or w that is not 16-byte
+aligned) takes the kernel's synchronous element path. No serve path
+launches it: the serve form pads such channel counts with zeros at their
+producer (nn/channel_pad.py).
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. `conv3x3_bias_act.launches` counts launches.
+launches the kernel or raises. `conv3x3_bias_act.launches` counts launches,
+`conv3x3_bias_act.element_launches` those of them on the element path.
 """
 import ctypes
 from typing import Optional
@@ -32,7 +38,8 @@ from . import _cuda
 from .fused_matmul import ACTIVATIONS, apply_activation, check_launch_args
 
 _ARGTYPES = {"conv3x3_bias_act_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p], "conv3x3_bias_act_tile": _cuda.TILE_ARGTYPES}
+             + [ctypes.c_void_p], "conv3x3_bias_act_tile": _cuda.TILE_ARGTYPES,
+             "conv3x3_bias_act_vector": _cuda.VECTOR_ARGTYPES}
 
 
 def conv3x3_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -59,6 +66,16 @@ def check_conv_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     check_launch_args(x, w, b, activation, (n * h * w_dim + 127, 9 * cin * w.shape[3]))
 
 
+def element_path(x: torch.Tensor, wk: torch.Tensor, values: int = 8) -> bool:
+    """True where a launch on NHWC x and the (Cout, 3, 3, Cin) weight wk
+    takes the kernel's synchronous element path: Cin not a multiple of
+    `values` (those in 16 bytes: 8 bf16, 16 int8) or x or wk not 16-byte
+    aligned. The rule of csrc/igemm_sm90.cuh:vector_path, which the
+    libraries export as `<name>_vector` (chip_smoke.py holds the two
+    equal)."""
+    return bool(x.shape[-1] % values or x.data_ptr() % 16 or wk.data_ptr() % 16)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             activation: Optional[str]) -> torch.Tensor:
     check_conv_args(x, w, b, activation)
@@ -78,6 +95,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(lib, "conv3x3_bias_act", code)
     conv3x3_bias_act.launches += 1
+    conv3x3_bias_act.element_launches += element_path(x, wk)
     return y
 
 
@@ -93,3 +111,4 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 conv3x3_bias_act.launches = 0
+conv3x3_bias_act.element_launches = 0

@@ -39,7 +39,11 @@ it launches its kernel or raises: nothing quietly dequantizes to bf16.
 The kernels store bf16 only, so on the card the module dtype is bf16.
 `matmul_s8_bias_act.launches` and `conv3x3_s8_bias_act.launches` count
 kernel launches (the im2col convs' included); `conv_s8_bias_act.calls`
-counts the im2col route's calls on the card.
+counts the im2col route's calls on the card, and
+`conv3x3_s8_bias_act.element_launches` the s8 conv launches on the
+kernel's synchronous element path (Cin not a multiple of 16), which no
+serve path takes: the serve form pads such channel counts at their
+producer (nn/channel_pad.py), and the quantize pass writes the padded map.
 """
 import ctypes
 from typing import Optional, Tuple
@@ -48,19 +52,29 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .conv3x3 import element_path
 from .fused_matmul import ACTIVATIONS, apply_activation
 
 _MATMUL_ARGTYPES = {"matmul_s8_bias_act_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                     + [ctypes.c_void_p], "matmul_s8_bias_act_tile": _cuda.TILE_ARGTYPES}
 _CONV_ARGTYPES = {"conv3x3_s8_bias_act_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                  + [ctypes.c_void_p], "conv3x3_s8_bias_act_tile": _cuda.TILE_ARGTYPES}
+                  + [ctypes.c_void_p], "conv3x3_s8_bias_act_tile": _cuda.TILE_ARGTYPES,
+                  "conv3x3_s8_bias_act_vector": _cuda.VECTOR_ARGTYPES}
 
 
-def quantize_activation(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+def quantize_activation(x: torch.Tensor, x_scale: torch.Tensor,
+                        channels: Optional[int] = None) -> torch.Tensor:
     """x -> int8 x_q = clamp(round(x_f32 / x_scale), -127, 127), in x's
     layout. The division is a true one (not a multiply by 1/x_scale) and
-    round is half to even, as jnp.round."""
-    return torch.clamp(torch.round(x.float() / x_scale.float()), -127, 127).to(torch.int8)
+    round is half to even, as jnp.round. With `channels` (more than x's
+    last dim, the channel-padded serve form, nn/channel_pad.py), x (...,
+    C) gives a contiguous (..., channels) map with zeros past C."""
+    q = torch.clamp(torch.round(x.float() / x_scale.float()), -127, 127)
+    if channels is None or channels == x.shape[-1]:
+        return q.to(torch.int8)
+    out = torch.zeros(x.shape[:-1] + (channels,), dtype=torch.int8, device=x.device)
+    out[..., :x.shape[-1]].copy_(q)
+    return out
 
 
 def int8_scale(w_scale: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
@@ -190,6 +204,7 @@ def _launch_conv(x_q, w_q, scale, bias, activation, out_dtype):
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(lib, "conv3x3_s8_bias_act", code)
     conv3x3_s8_bias_act.launches += 1
+    conv3x3_s8_bias_act.element_launches += element_path(x_q, wk, 16)
     return y
 
 
@@ -208,6 +223,7 @@ def conv3x3_s8_bias_act(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tenso
 
 
 conv3x3_s8_bias_act.launches = 0
+conv3x3_s8_bias_act.element_launches = 0
 
 
 # ---------------------------------------------------- every other int8 conv
