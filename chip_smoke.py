@@ -31,12 +31,14 @@ Phases (any failure exits non-zero; nothing is caught):
    (`torch.addmm`/`F.conv2d` + activation, cuDNN/cuBLAS, timed here and
    never used by the port) times are device times from CUDA events, summed
    per serve batch over the main path's launches, beside the bound
-   max(bytes / 3.35 TB/s, bf16 FLOPs / 989 TFLOP/s) of the H100 SXM. Each
+   max(bytes / 3.35 TB/s, bf16 FLOPs / 989 TFLOP/s) of the H100 SXM; a
+   channel-padded launch's bound and rate count the model conv's own
+   channels (`launch_of`), not the zeros'. Each
    shape's line also gives the achieved rate (TFLOP/s for the conv, TB/s
    for the matmul), the multiples of the bound and of the library time,
    and the output tile the C launcher chose, and for a conv the path it took
-   (vector or element, by the library's own rule, held equal to the rule
-   the wrapper counts by). Every shape of a serve path must take the vector
+   (vector or element, by the wrapper's counter, which asks the library's
+   own rule). Every shape of a serve path must take the vector
    path; only the ragged shapes take the element path. Then the narrow
    convs (NARROW_CONVS: TrackNet's enc_0, dec_7 and dec_8 at batch 32, the
    s2d stem at batch 4), which the serve form pads with zero channels
@@ -628,11 +630,9 @@ def serve(config, ckpt, img_dir, storage, task="detection", quantize=None):
 
 
 def kernel_conv(m):
-    """(route, Cout the kernel writes) of a deploy-form module whose conv
-    runs on a kernel, else None. Cout is the channel-padded one where the
-    serve form pads it (nn/channel_pad.py: TrackNet's dec_7)."""
+    """(route, conv) of a deploy-form module whose conv runs on a kernel,
+    else None."""
     from vision_conglomerate_torch.nn.blocks import ConvBNorm, RepVGGBlock, kernel_route
-    from vision_conglomerate_torch.nn.channel_pad import serve_conv_weights
 
     conv = None
     if isinstance(m, ConvBNorm) and m.folded:
@@ -640,7 +640,28 @@ def kernel_conv(m):
     elif isinstance(m, RepVGGBlock) and m.deploy:
         conv = getattr(m, "conv_reparam", None)
     route = conv is not None and kernel_route(conv, m.activation)
-    return (route, serve_conv_weights(m, conv)[0].shape[0]) if route else None
+    return (route, conv) if route else None
+
+
+def launch_of(route, shape, cout, act, work):
+    """A launch as the hooks list it: (route, NCHW input shape, Cout,
+    activation), and where the serve form pads the conv with zero channels
+    (nn/channel_pad.py), a fifth element, `work`: the conv's own (Cin,
+    Cout), which the launch's bound counts (not the zeros'). So a padded
+    launch is a case of its own, apart from a conv whose own shape it
+    shares (TrackNet's dec_8, served at 128 -> 128 on enc_4's map)."""
+    launch = (route, shape, cout, act)
+    return launch if work == (shape[1], cout) else launch + (work,)
+
+
+def conv_launch(m, route, conv, shape):
+    """The launch of deploy-form module m's kernel-routed conv on an input
+    of `shape`: Cout the channel-padded one where m pads (TrackNet's dec_7),
+    the input as its producer wrote it."""
+    from vision_conglomerate_torch.nn.channel_pad import padding
+
+    cout = (padding(m) or (0, conv.out_channels))[1]
+    return launch_of(route, shape, cout, m.activation, (conv.in_channels, conv.out_channels))
 
 
 def record_kernel_shapes(model):
@@ -651,8 +672,8 @@ def record_kernel_shapes(model):
         routed = kernel_conv(m)
         if routed:
             handles.append(m.register_forward_hook(
-                lambda mod, inp, out, r=routed[0], c=routed[1]: seen.append(
-                    (r, tuple(inp[0].shape), c, mod.activation))))
+                lambda mod, inp, out, r=routed: seen.append(
+                    conv_launch(mod, *r, tuple(inp[0].shape)))))
     return seen, handles
 
 
@@ -667,7 +688,7 @@ def recording_kernel_shapes():
     def hook(mod, inp, out):
         routed = kernel_conv(mod)
         if routed:
-            seen.append((routed[0], tuple(inp[0].shape), routed[1], mod.activation))
+            seen.append(conv_launch(mod, *routed, tuple(inp[0].shape)))
         elif int8_conv(mod):
             seen.append(int8_conv(mod, tuple(inp[0].shape)))
 
@@ -824,24 +845,21 @@ def launcher_tile(route, m, n, k):
     return _cuda.tile(lib, name, m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
-def conv_path(route, x, w_hwio):
-    """"vector" or "element": the path of a conv kernel launch on NHWC x
-    and HWIO w, by the library's own rule (`<name>_vector`, igemm_sm90.cuh
-    vector_path), held equal to the rule the wrapper counts element-path
-    launches by (ops.conv3x3.element_path)."""
-    from vision_conglomerate_torch.ops import _cuda, conv3x3, int8
+def launch_path(route, kern):
+    """(kern(), its path): "vector" or "element" for a conv kernel launch,
+    by the wrapper's counter (the library's own rule), None for a matmul."""
+    from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act
+    from vision_conglomerate_torch.ops.int8 import conv3x3_s8_bias_act
 
-    name = {**KERNELS, **S8_KERNELS}[route]["name"]
-    lib = _cuda.load(name, conv3x3._ARGTYPES if route == "conv3x3" else int8._CONV_ARGTYPES, 0)
-    wk = w_hwio.permute(3, 0, 1, 2).contiguous()  # what the wrapper passes
-    vector = getattr(lib, f"{name}_vector")(x.data_ptr(), wk.data_ptr(), x.shape[-1])
-    element = conv3x3.element_path(x, wk, 16 if route == "conv3x3_s8" else 8)
-    check(bool(vector) != element, f"{route} at {tuple(x.shape)}: the library's vector path "
-                                   f"{vector}, the wrapper's element path {element}")
-    return "element" if element else "vector"
+    counter = {"conv3x3": conv3x3_bias_act, "conv3x3_s8": conv3x3_s8_bias_act}.get(route)
+    before = counter.element_launches if counter else 0
+    out = kern()
+    if not counter:
+        return out, None
+    return out, "element" if counter.element_launches > before else "vector"
 
 
-def run_case(route, shape, cout, act, g):
+def run_case(route, shape, cout, act, g, work=None):
     from vision_conglomerate_torch.ops.conv3x3 import conv3x3_bias_act, conv3x3_bias_act_plain
     from vision_conglomerate_torch.ops.fused_matmul import (
         apply_activation, matmul_bias_act, matmul_bias_act_plain)
@@ -870,9 +888,10 @@ def run_case(route, shape, cout, act, g):
         plain = lambda: conv3x3_bias_act_plain(x, wt, bias, act)  # noqa: E731
         lib = lambda: apply_activation(  # noqa: E731
             F.conv2d(x_nchw, w_oihw, bias.bfloat16(), padding=1), act)
-        nbytes = 2 * (b * h * w * cin + 9 * cin * cout + b * h * w * cout) + 4 * cout
-        flops = 2 * b * h * w * 9 * cin * cout
-    got = kern()
+        ci, co = work or (cin, cout)  # the conv's own channels, not its zeros'
+        nbytes = 2 * (b * h * w * ci + 9 * ci * co + b * h * w * co) + 4 * co
+        flops = 2 * b * h * w * 9 * ci * co
+    got, path = launch_path(route, kern)
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
@@ -882,10 +901,10 @@ def run_case(route, shape, cout, act, g):
                 max_abs_err=err.max().item(), ms=device_ms(kern), plain_ms=device_ms(plain),
                 library_ms=device_ms(lib), bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
                 tile=list(launcher_tile(route, b * h * w, cout, cin if route == "matmul" else 9 * cin)),
-                path=None if route == "matmul" else conv_path(route, x, wt))
+                path=path)
 
 
-def run_s8_case(route, shape, cout, act, g):
+def run_s8_case(route, shape, cout, act, g, work=None):
     """One s8 kernel shape on random int8 operands against its plain
     version (exact f64 sums, the f32 epilogue, bf16), timed with the plain
     version and the library call: torch._int_mm (int8 -> int32) on the
@@ -922,14 +941,15 @@ def run_s8_case(route, shape, cout, act, g):
         wc = int8.im2col_weights(w_hwio, cols.shape[1])
     lib = lambda: int8.dequantize(  # noqa: E731
         torch._int_mm(cols, wc), scale, bias, act, torch.bfloat16)
-    got = kern()
+    got, path = launch_path(route, kern)
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().reshape(-1)
     ok = bool((err <= S8_ATOL + S8_RTOL * want.float().abs().reshape(-1)).all())
     m = b * h * w
-    nbytes = m * cin + k * cout + 2 * m * cout + 8 * cout
-    ops = 2 * m * k * cout
+    ci, co = work or (cin, cout)  # the conv's own channels, not its zeros'
+    nbytes = m * ci + taps * ci * co + 2 * m * co + 8 * co
+    ops = 2 * m * taps * ci * co
     bnd, by = bound_ms(nbytes, ops, PEAK_INT8_OPS)
     try:  # the yardstick only: cuBLAS takes no int8 GEMM of some ragged shapes
         library = device_ms(lib, iters=5)
@@ -941,8 +961,7 @@ def run_s8_case(route, shape, cout, act, g):
                 max_abs_err=err.max().item(), ms=device_ms(kern),
                 plain_ms=device_ms(plain, iters=1), library_ms=library,
                 bound_ms=bnd, bound_by=by, bytes=nbytes, flops=ops,
-                tile=list(launcher_tile(route, m, cout, k)),
-                path=None if taps == 1 else conv_path(route, x, w_hwio))
+                tile=list(launcher_tile(route, m, cout, k)), path=path)
 
 
 def kernel_phase(paths, extra=None, kernels=KERNELS, runner=run_case, ragged=RAGGED,
@@ -960,9 +979,10 @@ def kernel_phase(paths, extra=None, kernels=KERNELS, runner=run_case, ragged=RAG
     rows = []
     cases = kernel_cases({p: [s for s in v[0] if s[0] in kernels] for p, v in paths.items()},
                          {s: v for s, v in extra.items() if s[0] in kernels}, ragged)
-    for (route, shape, cout, act), per_batch in sorted(cases.items()):
-        r = runner(route, shape, cout, act, g)
-        r["launches_per_batch"] = per_batch
+    for launch, per_batch in sorted(cases.items()):
+        route, shape, cout, act = launch[:4]
+        r = runner(*launch[:4], g, *launch[4:])
+        r["launches_per_batch"], r["work"] = per_batch, launch[4] if len(launch) > 4 else None
         rows.append(r)
         b, cin, h, w = shape
         if route.startswith("matmul"):
@@ -971,7 +991,9 @@ def kernel_phase(paths, extra=None, kernels=KERNELS, runner=run_case, ragged=RAG
             unit = "TOP/s" if route in S8_KERNELS else "TFLOP/s"
             desc, rate = f"B={b} {h}x{w} {cin}->{cout}", f"{r['flops'] / r['ms'] / 1e9:.1f} {unit}"
         uses = ", ".join(f"{p} x{n}" for p, n in per_batch.items() if n)
-        uses = uses + " a batch" if uses else extra.get((route, shape, cout, act), "ragged")
+        uses = uses + " a batch" if uses else extra.get(launch, "ragged")
+        if r["work"]:
+            uses += f", conv of {r['work'][0]} -> {r['work'][1]} padded"
         lib = (f"{r['ms'] / r['library_ms']:.2f}x library ({r['library_ms']:.4f})"
                if r["library_ms"] else "no library time")
         path = f", {r['path']} path" if r["path"] else ""
@@ -2899,20 +2921,22 @@ def int8_conv(m, shape=None):
     GEMM launches the s8 matmul at (1, K, M, 1): M = B*Ho*Wo rows, K the
     patch width padded to a multiple of 16. The kernel's Cin and Cout are
     the channel-padded ones where the serve form pads them (the quantize
-    pass writes the padded map). True without `shape`; None for every
-    other module."""
+    pass writes the padded map; `launch_of` keeps the conv's own). True
+    without `shape`; None for every other module."""
     from vision_conglomerate_torch.nn.blocks import geometry_route
-    from vision_conglomerate_torch.nn.channel_pad import serve_q_params
+    from vision_conglomerate_torch.nn.channel_pad import padding as channel_padding
 
     if not hasattr(m, "q_kernel"):
         return None
     if shape is None:
         return True
     stride, padding = m.q_geometry
-    cout, cin, kh, kw = serve_q_params(m)[0].shape
+    own_cout, own_cin, kh, kw = m.q_kernel.shape
+    cin, cout = channel_padding(m) or (own_cin, own_cout)
     route = geometry_route((kh, kw), stride, padding, m.activation)
     if route:
-        return f"{route}_s8", (shape[0], cin) + tuple(shape[2:]), cout, m.activation
+        return launch_of(f"{route}_s8", (shape[0], cin) + tuple(shape[2:]), cout, m.activation,
+                         (own_cin, own_cout))
     b, _, h, w = shape
     ho = (h + 2 * padding[0] - kh) // stride[0] + 1
     wo = (w + 2 * padding[1] - kw) // stride[1] + 1
@@ -2929,20 +2953,18 @@ def quantize_on(model, x, **forward_kw):
     model a loader built with quantize="int8"; returns the calibration
     absmax ({path: 0-d tensor})."""
     from vision_conglomerate_torch.nn.blocks import cast_conv_weights
-    from vision_conglomerate_torch.nn.channel_pad import pad_channels_
     from vision_conglomerate_torch.nn.quantize import collect_calibration, int8_quantize_
 
     absmax = collect_calibration(model, [x], **forward_kw)
     int8_quantize_(model, absmax)
-    pad_channels_(cast_conv_weights(model, model.dtype))
+    cast_conv_weights(model, model.dtype)
     return absmax
 
 
 def copy_int8(src, dst):
     """Put `dst` (the same net on the CPU, f32 weights) in `src`'s int8
-    form with `src`'s q parameters, channel-padded as the loaders pad."""
+    form with `src`'s q parameters."""
     from vision_conglomerate_torch.nn.blocks import set_int8_
-    from vision_conglomerate_torch.nn.channel_pad import pad_channels_
     from vision_conglomerate_torch.nn.quantize import quantizable_modules
 
     mods = quantizable_modules(dst)
@@ -2950,7 +2972,6 @@ def copy_int8(src, dst):
         if hasattr(m, "q_kernel"):
             set_int8_(mods[path], *(getattr(m, k).cpu() for k in
                                     ("q_kernel", "q_wscale", "q_xscale", "q_bias")))
-    pad_channels_(dst)
 
 
 def calibration_gap(card, cpu):

@@ -21,10 +21,15 @@ plain versions:
   deploy form, the whole csp_s2d detector through `load_detection_model`
   against the unpadded one bit for bit, bf16 form and int8;
 - the state_dict, weights.py's flax tree and a saved checkpoint of a
-  padded serve net equal the unpadded one's;
-- routing: no conv3x3 or s8 conv call of a padded deploy form (TrackNet
-  base at full width, csp_s2d) would take the kernels' element path
-  (`ops.conv3x3.element_path`, the counter's rule); the unpadded forms do.
+  padded serve net equal the unpadded one's, and the padded tensors
+  follow what a later load_state_dict or load_int8_state_ writes;
+- routing: every conv3x3 or s8 conv call of a padded deploy form
+  (TrackNet base at full width, csp_s2d) has a Cin that is a multiple of
+  the values in 16 bytes (8 bf16, 16 int8), the vector path's channel
+  rule (csrc/igemm_sm90.cuh `vector_path`); the unpadded forms do not.
+
+The unpadded port is the same deploy form with its marks taken off
+(`unpadded`).
 """
 import numpy as np
 import pytest
@@ -65,6 +70,20 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def unpadded(net):
+    """`net` with every conv's channel-padding mark taken off: the deploy
+    form as it was before the serve form padded."""
+    for m in net.modules():
+        if getattr(m, "pad_channels", None):
+            m.pad_channels = None
+    return net
+
+
+def served(m):
+    """The float deploy-form tensors a ConvBNorm serves with."""
+    return channel_pad.serve_conv_weights(m, m.conv)
 
 
 def zero_padded(t: torch.Tensor, shape, fill: float = 0.0) -> torch.Tensor:
@@ -143,7 +162,7 @@ def tn(tmp_path_factory):
 
 
 def unpadded_tracknet(state, config=HALF):
-    dep = TrackNet(config, folded=True)
+    dep = unpadded(TrackNet(config, folded=True))
     dep.load_state_dict(state)
     return dep.eval()
 
@@ -152,11 +171,12 @@ def test_padded_tracknet_deploy_matches_jax(tn):
     ckpt, state, x, want = tn
     net = load_tracknet_model(ckpt, HALF, device="cpu")
     enc, dec = net.encoder, net.decoder
-    assert tuple(enc.enc_0.padded_weight.shape) == (32, 16, 3, 3)
-    assert tuple(dec.dec_7.padded_weight.shape) == (64, 192, 3, 3)
-    assert tuple(dec.dec_7.padded_bias.shape) == (64,) and not dec.dec_7.padded_bias[63:].any()
-    assert tuple(dec.dec_8.padded_weight.shape) == (64, 64, 3, 3)
-    assert not hasattr(dec.dec_2, "padded_weight")
+    assert tuple(served(enc.enc_0)[0].shape) == (32, 16, 3, 3)
+    w7, b7 = served(dec.dec_7)
+    assert tuple(w7.shape) == (64, 192, 3, 3) and not w7[63:].any()
+    assert tuple(b7.shape) == (64,) and not b7[63:].any()
+    assert tuple(served(dec.dec_8)[0].shape) == (64, 64, 3, 3)
+    assert served(dec.dec_2)[0] is dec.dec_2.conv.weight
     with torch.no_grad():
         got = net(nchw(x))
         ref = unpadded_tracknet(state)(nchw(x))
@@ -172,13 +192,13 @@ def test_padded_int8_tracknet_equals_unpadded_and_matches_jax(tn):
     ref = unpadded_tracknet(state)
     quantize.int8_quantize_(ref, quantize.collect_calibration(ref, [calib], inference=True,
                                                               og_size=x.shape[1:3]))
-    dec_7 = net.decoder.dec_7
-    assert not hasattr(dec_7, "padded_weight")
-    assert tuple(dec_7.padded_q_kernel.shape) == (64, 192, 3, 3)
-    assert torch.isfinite(dec_7.padded_q_wscale).all() and (dec_7.padded_q_wscale[63:] == 1).all()
-    assert not dec_7.padded_q_kernel[63:].any() and not dec_7.padded_q_bias[63:].any()
-    assert tuple(net.decoder.dec_8.padded_q_kernel.shape) == (64, 64, 3, 3)
-    assert tuple(net.encoder.enc_0.padded_q_kernel.shape) == (32, 16, 3, 3)
+    q7, s7, b7 = channel_pad.serve_q_params(net.decoder.dec_7)
+    assert tuple(q7.shape) == (64, 192, 3, 3)
+    assert torch.isfinite(s7).all() and (s7[63:] == 1).all()
+    assert not q7[63:].any() and not b7[63:].any()
+    assert tuple(channel_pad.serve_q_params(net.decoder.dec_8)[0].shape) == (64, 64, 3, 3)
+    assert tuple(channel_pad.serve_q_params(net.encoder.enc_0)[0].shape) == (32, 16, 3, 3)
+    assert channel_pad.in_channels(net.encoder.enc_0, 9) == 9  # the quantize pass pads
     for k, v in ref.state_dict().items():  # the same calibration and q parameters
         assert torch.equal(net.state_dict()[k], v), k
     with torch.no_grad():
@@ -186,8 +206,8 @@ def test_padded_int8_tracknet_equals_unpadded_and_matches_jax(tn):
         assert torch.equal(got, ref(calib))
     case = Case("tracknet_half", lambda: TrackNet(HALF, folded=True), JaxTrackNet(config=HALF),
                 state, x, nchw_outputs=(0,))
-    bridged = channel_pad.pad_channels_(case.bridged_int8_net())
-    assert hasattr(bridged.decoder.dec_8, "padded_q_kernel")
+    bridged = case.bridged_int8_net()
+    assert channel_pad.padding(bridged.decoder.dec_8) == (64, 64)
     (out,), _ = case.outputs(bridged)
     rel = np.abs(out - case.jax_out[0]).max() / np.abs(case.jax_out[0]).max()
     assert rel <= OUT_REL, rel
@@ -209,8 +229,8 @@ def test_padded_s2d_backbone_matches_jax():
     for pad in (False, True):
         net = backbones.CSPNet(3, **kw, folded=True)
         net.load_state_dict(state)
-        nets.append(channel_pad.pad_channels_(net.eval()) if pad else net.eval())
-    assert tuple(nets[1].conv0.padded_weight.shape) == (8, 16, 3, 3)
+        nets.append(net.eval() if pad else unpadded(net).eval())
+    assert tuple(served(nets[1].conv0)[0].shape) == (8, 16, 3, 3)
     with torch.no_grad():
         ref, got = (net(nchw(x)) for net in nets)
     for g, r, w in zip(got, ref, want):
@@ -228,7 +248,7 @@ def test_padded_csp_s2d_detector_equals_unpadded(tmp_path):
                            "NETWORK_PARAMS": state_dict_to_flax(train_form.state_dict())})
     x = torch.from_numpy(np.random.default_rng(67).uniform(size=(2, 3, 64, 64)).astype(
         np.float32)).contiguous(memory_format=torch.channels_last)
-    ref = DetectionNet(NUM_CLASSES, config, anchors=ANCHORS, deploy=True, folded=True)
+    ref = unpadded(DetectionNet(NUM_CLASSES, config, anchors=ANCHORS, deploy=True, folded=True))
     ref.load_state_dict(deploy_transform(train_form.state_dict()))
     ref.eval()
     for q in (None, "int8"):
@@ -236,9 +256,9 @@ def test_padded_csp_s2d_detector_equals_unpadded(tmp_path):
         if q:
             quantize_model_int8(net, x, inference=True)
             quantize.int8_quantize_(ref, quantize.collect_calibration(ref, [x], inference=True))
-            assert hasattr(net.backbone.conv0, "padded_q_kernel")
+            assert tuple(channel_pad.serve_q_params(net.backbone.conv0)[0].shape[:2]) == (64, 16)
         else:
-            assert tuple(net.backbone.conv0.padded_weight.shape[:2]) == (64, 16)
+            assert tuple(served(net.backbone.conv0)[0].shape[:2]) == (64, 16)
         with torch.no_grad():
             got, want = net(x, inference=True), ref(x, inference=True)
         assert torch.equal(got, want), q
@@ -254,8 +274,7 @@ def test_padding_leaves_state_bridge_and_checkpoint_unchanged(tn, tmp_path):
             for m in (net, ref):
                 calib = quantize.collect_calibration(m, [nchw(x)])
                 quantize.int8_quantize_(m, calib)
-            channel_pad.pad_channels_(net)
-        assert any("padded_" in k for k, _ in net.named_buffers())
+        assert channel_pad.padding(net.decoder.dec_7) == (192, 64)
         got, want = net.state_dict(), ref.state_dict()
         assert sorted(got) == sorted(want) and not any("padded" in k for k in got)
         for k, v in want.items():
@@ -273,19 +292,41 @@ def test_padding_leaves_state_bridge_and_checkpoint_unchanged(tn, tmp_path):
             np.testing.assert_array_equal(np.asarray(saved[0][k]), np.asarray(v))
     train_form = TrackNet(HALF)
     assert train_form.decoder.dec_7.pad_channels == (192, 64)
-    assert not any("padded" in k for k, _ in train_form.named_buffers())
+    assert channel_pad.padding(train_form.decoder.dec_7) is None
+    assert channel_pad.in_channels(train_form.encoder.enc_0, 9) == 9
+
+
+@pytest.mark.parametrize("q", [None, "int8"])
+def test_padded_serve_follows_later_loads(tn, q):
+    """A padded serve net that has run, then loaded with other weights
+    (load_state_dict; in int8 load_int8_state_ on a net the loader built),
+    serves the new weights: equal to the unpadded form of them."""
+    ckpt, state, x, _ = tn
+    other = deploy_transform(port_tracknet(HALF, seed=72).state_dict(), fuse_repvgg=False)
+    net = load_tracknet_model(ckpt, HALF, device="cpu", quantize=q)
+    ref = unpadded_tracknet(other)
+    if q:
+        quantize.int8_quantize_(ref, quantize.collect_calibration(ref, [nchw(x)]))
+    with torch.no_grad():
+        net(nchw(x))
+        if q:
+            quantize.load_int8_state_(net, ref.state_dict())
+        else:
+            net.load_state_dict(other)
+        got, want = net(nchw(x)), ref(nchw(x))
+    assert torch.equal(got, want)
 
 
 # -------------------------------------------------------------- routing
 def element_calls(monkeypatch):
     """Spy on the conv3x3 and s8 conv wrappers: the list of (name, Cin,
-    element path?) of every call."""
+    Cin narrow?) of every call, narrow being not a multiple of the values
+    in 16 bytes (the element path's channel condition)."""
     calls = []
 
     def spy(name, fn, values):
         def wrapped(x, w, *args):
-            wk = w.permute(3, 0, 1, 2).contiguous()
-            calls.append((name, x.shape[-1], conv3x3.element_path(x, wk, values)))
+            calls.append((name, x.shape[-1], x.shape[-1] % values != 0))
             return fn(x, w, *args)
         return wrapped
 
@@ -311,13 +352,9 @@ def routed_net(name, pad, q):
         net.load_state_dict(deploy_transform(train_form.state_dict()))
         x, kw = torch.rand(1, 3, 64, 64, generator=torch.Generator().manual_seed(71)), dict(
             inference=True)
-    net.eval()
-    if pad:
-        channel_pad.pad_channels_(net)
+    net = net.eval() if pad else unpadded(net).eval()
     if q:
         quantize.int8_quantize_(net, quantize.collect_calibration(net, [x], **kw))
-        if pad:
-            channel_pad.pad_channels_(net)
     return net, x, kw
 
 

@@ -243,7 +243,8 @@ def test_remat_matches_plain_step():
 
 def test_deploy_form_routes_every_conv_to_conv3x3(monkeypatch):
     """All 18 folded convs, dec_13 included, take the conv3x3 route with
-    ReLU; the train form takes none."""
+    ReLU; the train form takes none. enc_0 runs over the frame stack with
+    the deploy form's zero channels (9 -> 16, nn/channel_pad.py)."""
     calls = []
 
     def spy(x, w, b, activation):
@@ -257,7 +258,7 @@ def test_deploy_form_routes_every_conv_to_conv3x3(monkeypatch):
         assert calls == []
         TrackNet(CONFIG, folded=True).eval()(x)
     assert len(calls) == 18 and {c[2] for c in calls} == {"relu"}
-    assert calls[0][0] == (1, H, W, 9) and calls[-1][1][-1] == 256
+    assert calls[0][0] == (1, H, W, 16) and calls[-1][1][-1] == 256
 
 
 def test_advanced_architecture_raises():

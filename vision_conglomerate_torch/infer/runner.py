@@ -38,9 +38,9 @@ are quantized per output channel from the f32 folded kernels, and every
 later batch runs int8 convs (on the card the s8 kernels,
 `ops/int8.py`); it needs the deploy form.
 
-The deploy form is padded with zero channels where a kernel-routed conv's
-channel count is not a multiple of 16 (`nn.channel_pad.pad_channels_`:
-the s2d stem), on the card and on the CPU alike, bf16 and int8.
+The deploy form pads with zero channels where a kernel-routed conv's
+channel count is not a multiple of 16 (`nn.channel_pad`: the s2d stem),
+on the card and on the CPU alike, bf16 and int8.
 """
 import json
 import logging
@@ -60,7 +60,6 @@ from ..data.inference import InferenceImgDataset, InferenceVideoDataset, SingleI
 from ..device import resolve_device
 from ..models import DetectionNet, SegmentationNet
 from ..nn.blocks import cast_conv_weights
-from ..nn.channel_pad import pad_channels_
 from ..nn.quantize import collect_calibration, int8_quantize_
 from ..nn.reparam import deploy_transform
 from ..ops.postprocess import assemble_instance_masks, postprocess_detections
@@ -103,10 +102,9 @@ def quantize_model_int8(model: torch.nn.Module, calib: torch.Tensor, **forward_k
     records the f32 absmax at each quantizable conv's input, in the served
     compute dtype; the calibrated convs take their int8 form, quantized from
     their f32 folded weights (a loader's `quantize="int8"` keeps them so);
-    the other convs' weights are then cast to the compute dtype, and the
-    channel-padded convs get their padded int8 buffers."""
+    the other convs' weights are then cast to the compute dtype."""
     int8_quantize_(model, collect_calibration(model, [calib], **forward_kwargs))
-    return pad_channels_(cast_conv_weights(model, model.dtype))
+    return cast_conv_weights(model, model.dtype)
 
 
 def load_detection_model(weights_path: str, model_config: Dict[str, Any],
@@ -118,8 +116,7 @@ def load_detection_model(weights_path: str, model_config: Dict[str, Any],
     in the deploy form unless `use_reparam=False`, with conv weights in bf16
     on cuda (what the kernels take) and f32 on the CPU. With
     `quantize="int8"` the conv weights stay f32 (each conv casts its weight
-    at the call) until `quantize_model_int8`. The deploy form is
-    channel-padded (`nn.channel_pad`). Returns (model in eval mode,
+    at the call) until `quantize_model_int8`. Returns (model in eval mode,
     num_classes)."""
     int8 = check_quantize(quantize, use_reparam)
     dev = resolve_device(device)
@@ -137,8 +134,7 @@ def load_detection_model(weights_path: str, model_config: Dict[str, Any],
     model = cls(num_classes, model_config, num_keypoints=num_keypoints,
                 deploy=fuse_repvgg, folded=use_reparam, dtype=dtype, device=dev)
     model.load_state_dict(state)
-    model = model if int8 else cast_conv_weights(model, dtype)
-    return pad_channels_(model).eval(), num_classes
+    return (model if int8 else cast_conv_weights(model, dtype)).eval(), num_classes
 
 
 @torch.no_grad()

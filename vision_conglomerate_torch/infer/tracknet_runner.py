@@ -26,10 +26,10 @@ f32 on the kernels' plain versions. `quantize="int8"` calibrates the
 int8 form on the first batch of stacked frames and serves int8, as the JAX
 package does (`infer.runner.quantize_model_int8`; the deploy form only);
 `dec_13` and the advanced net's `deconv4` (no BatchNorm) and its
-transpose convs stay in bf16. The base architecture's deploy form is
-padded with zero channels (`nn.channel_pad`: the 9-channel frame stack
-and enc_0 to 16, dec_7 -> dec_8 to 128), bf16 and int8, on either device,
-so that every conv takes the kernels' vector path.
+transpose convs stay in bf16. The base architecture's deploy form pads
+with zero channels (`nn.channel_pad`: the 9-channel frame stack and
+enc_0 to 16, dec_7 -> dec_8 to 128), bf16 and int8, on either device, so
+that every conv takes the kernels' vector path.
 """
 import logging
 import os
@@ -45,7 +45,6 @@ from ..data.inference import TrackNetInferenceImgDataset, TrackNetInferenceVideo
 from ..device import resolve_device
 from ..models.tracknet import TrackNet
 from ..nn.blocks import cast_conv_weights
-from ..nn.channel_pad import pad_channels_
 from ..nn.reparam import deploy_transform
 from ..ops.heatmap import decode_heatmap_peaks, hough_decode
 from ..train.checkpoint import load_checkpoint
@@ -79,8 +78,7 @@ def load_tracknet_model(weights_path: str, model_config: Dict[str, Any], num_sta
     architecture with canonical RepVGG blocks (`adv_repvgg_canonical`),
     fuses each block into one 3x3 conv, as the JAX package does. With
     `quantize="int8"` the conv weights stay f32 until
-    `infer.runner.quantize_model_int8`. The deploy form is channel-padded
-    (`nn.channel_pad.pad_channels_`)."""
+    `infer.runner.quantize_model_int8`."""
     int8 = check_quantize(quantize, use_reparam)
     dev = resolve_device(device)
     state = flax_to_state_dict(load_checkpoint(weights_path)["NETWORK_PARAMS"])
@@ -92,8 +90,7 @@ def load_tracknet_model(weights_path: str, model_config: Dict[str, Any], num_sta
     model = TrackNet(model_config, in_channels=3 * num_stacks, folded=use_reparam,
                      deploy=fuse_repvgg, dtype=dtype, device=dev)
     model.load_state_dict(state)
-    model = model if int8 else cast_conv_weights(model, dtype)
-    return pad_channels_(model).eval()
+    return (model if int8 else cast_conv_weights(model, dtype)).eval()
 
 
 @torch.no_grad()

@@ -27,10 +27,9 @@ its forward quantizes its input and runs the int8 conv
 `ops.int8.conv_s8_bias_act`.
 
 Channel padding. A ConvBNorm marked with `pad_channels` (nn/channel_pad.py:
-TrackNet's enc_0, dec_7 and dec_8, CSPNet's space-to-depth stem) serves,
-once `channel_pad.pad_channels_` has run on the deploy form, with its
-zero-padded weights (`padded_*` non-persistent buffers), so that its conv
-takes the kernels' vector path.
+TrackNet's enc_0, dec_7 and dec_8, CSPNet's space-to-depth stem) serves
+its deploy form, float or int8, with its weights zero-padded in the
+forward, so that its conv takes the kernels' vector path.
 
 Numerics follow the JAX package: parameters are f32 and each conv casts its
 weight and bias to the activations' dtype at the call, so gradients land in
@@ -142,8 +141,8 @@ def int8_conv_bias_act(x: torch.Tensor, module: nn.Module,
     sums, then act(sum * (q_wscale * q_xscale) + q_bias) in f32, cast to
     x's dtype. 1x1/s1 convs run on the s8 matmul kernel, 3x3/s1 ones on
     the s8 conv kernel, the others on `conv_s8_bias_act`. A channel-padded
-    module (nn/channel_pad.py) runs its padded buffers, and the quantize
-    pass writes the padded channel count."""
+    module (nn/channel_pad.py) runs its padded q parameters, and the
+    quantize pass writes the padded channel count."""
     stride, padding = module.q_geometry
     q_kernel, q_wscale, q_bias = serve_q_params(module)
     w_hwio = q_kernel.permute(2, 3, 1, 0)

@@ -26,22 +26,20 @@ SiLU, so its consumer reads zeros there. In int8, the zeros quantize to
 0 and leave the per-tensor activation absmax as it is; a padded output
 row gets int8 weights 0, weight scale 1 (finite and nonzero) and bias 0.
 
-Where it lives. A model marks each conv to pad at construction
-(`mark`: `ConvBNorm.pad_channels`, the serve form's (Cin, Cout)).
-`pad_channels_` builds the padded tensors of every marked deploy-form
-conv as non-persistent buffers (`padded_weight`, `padded_bias`; in the
-int8 form `padded_q_kernel`, `padded_q_wscale`, `padded_q_bias`), which
-the forward takes where they exist (`nn.blocks`). So no state_dict,
-checkpoint or flax tree (weights.py) ever holds a padded tensor, and the
-train form has none. The serve loaders call it on the CPU and on the card
-alike (`infer.runner.load_detection_model`,
-`infer.tracknet_runner.load_tracknet_model`), and again after int8
-quantization (`infer.runner.quantize_model_int8`).
+Where it lives. A model marks each conv to pad at construction (`mark`:
+`ConvBNorm.pad_channels`, the serve form's (Cin, Cout)). Only the deploy
+form of a marked conv (a folded ConvBNorm, float or int8) pads
+(`padding`), on the card and on the CPU alike. Its forward pads the
+tensors it holds as it runs (`serve_conv_weights`, `serve_q_params`: a
+few small copies), so the padded ones always follow the module's own,
+whatever set or loaded them, and no state_dict, checkpoint or flax tree
+(weights.py) ever holds a padded tensor.
 """
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 PAD = 16
 
@@ -52,10 +50,13 @@ def padded(c: int) -> int:
 
 
 def mark(module: nn.Module, cin: Optional[int] = None, cout: Optional[int] = None) -> None:
-    """Mark a ConvBNorm's conv to serve with `cin` input and `cout` output
-    channels (each at least the conv's own; None keeps it). A conv whose
-    counts both stay is not marked."""
+    """Mark a ConvBNorm's 3x3/s1 conv (the conv3x3 kernel's) to serve with
+    `cin` input and `cout` output channels (each at least the conv's own;
+    None keeps it). A conv whose counts both stay is not marked."""
     conv = module.conv
+    if conv.groups != 1 or conv.stride != (1, 1) or conv.kernel_size != (3, 3):
+        raise ValueError(f"only a 3x3/s1 conv (the conv3x3 kernel's) pads, not a "
+                         f"{conv.kernel_size}/s{conv.stride} one")
     want = (cin or conv.in_channels, cout or conv.out_channels)
     if want[0] < conv.in_channels or want[1] < conv.out_channels:
         raise ValueError(f"pad {tuple(want)} is narrower than the conv's "
@@ -64,65 +65,19 @@ def mark(module: nn.Module, cin: Optional[int] = None, cout: Optional[int] = Non
         module.pad_channels = want
 
 
-def _zero_padded(t: torch.Tensor, shape, fill: float = 0.0) -> torch.Tensor:
-    out = t.new_full(shape, fill)
-    out[tuple(slice(0, n) for n in t.shape)] = t
-    return out
-
-
-def _drop_padded(module: nn.Module) -> None:
-    for name in ("padded_weight", "padded_bias", "padded_q_kernel", "padded_q_wscale",
-                 "padded_q_bias"):
-        if hasattr(module, name):
-            delattr(module, name)
-
-
-def pad_conv_(module: nn.Module) -> nn.Module:
-    """Build the padded serve tensors of one marked deploy-form ConvBNorm
-    from its current form: the float conv (weight in its dtype,
-    channels_last; bias f32) or the int8 buffers. Replaces any built
-    before (the float ones once the module is quantized)."""
-    cin, cout = module.pad_channels
-    _drop_padded(module)
-    if hasattr(module, "q_kernel"):
-        q = module.q_kernel
-        module.register_buffer("padded_q_kernel", _zero_padded(
-            q, (cout, cin) + tuple(q.shape[2:])).contiguous(memory_format=torch.channels_last),
-            persistent=False)
-        module.register_buffer("padded_q_wscale", _zero_padded(module.q_wscale, (cout,), 1.0),
-                               persistent=False)
-        module.register_buffer("padded_q_bias", _zero_padded(module.q_bias, (cout,)),
-                               persistent=False)
-        return module
-    conv = module.conv
-    if conv.groups != 1 or conv.stride != (1, 1) or conv.kernel_size != (3, 3):
-        raise ValueError(f"only a 3x3/s1 conv (the conv3x3 kernel's) pads, not a "
-                         f"{conv.kernel_size}/s{conv.stride} one")
-    w = conv.weight.detach()
-    module.register_buffer("padded_weight", _zero_padded(
-        w, (cout, cin) + tuple(w.shape[2:])).contiguous(memory_format=torch.channels_last),
-        persistent=False)
-    module.register_buffer("padded_bias", _zero_padded(conv.bias.detach(), (cout,)),
-                           persistent=False)
-    return module
-
-
-@torch.no_grad()
-def pad_channels_(model: nn.Module) -> nn.Module:
-    """Pad every marked conv of the deploy form (BN-folded ConvBNorms) of
-    `model`; other modules and the train form stay as they are."""
-    for m in model.modules():
-        if getattr(m, "pad_channels", None) and getattr(m, "folded", False):
-            pad_conv_(m)
-    return model
+def padding(module: nn.Module) -> Optional[Tuple[int, int]]:
+    """The (Cin, Cout) a module serves with: its mark in the deploy form (a
+    folded ConvBNorm, float or int8), else None (unmarked, or the train
+    form)."""
+    return getattr(module, "pad_channels", None) if getattr(module, "folded", False) else None
 
 
 def in_channels(module: nn.Module, default: int) -> int:
-    """The channels a producer writes for a (possibly padded) conv module:
-    its padded float weight's Cin where it has one, else `default` (an
-    int8 module pads in its quantize pass)."""
-    w = getattr(module, "padded_weight", None)
-    return default if w is None else w.shape[1]
+    """The channels a producer writes for `module`'s input: the padded Cin
+    of a marked conv's float deploy form, else `default` (the train form
+    does not pad, and in int8 the quantize pass writes the padded map)."""
+    pad = padding(module)
+    return default if pad is None or hasattr(module, "q_kernel") else pad[0]
 
 
 def widen(x: torch.Tensor, channels: int, dtype: torch.dtype) -> torch.Tensor:
@@ -139,20 +94,29 @@ def widen(x: torch.Tensor, channels: int, dtype: torch.dtype) -> torch.Tensor:
     return out.permute(0, 3, 1, 2)
 
 
+def _pad_oihw(w: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """An OIHW weight with zero rows and columns up to (cout, cin); F.pad
+    keeps its memory format (channels_last in the serve form)."""
+    return F.pad(w, (0, 0, 0, 0, 0, cin - w.shape[1], 0, cout - w.shape[0]))
+
+
 def serve_conv_weights(module: nn.Module, conv: nn.Conv2d) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weight, bias) the float serve forward of `module` runs: the padded
-    ones where built, else the conv's."""
-    w = getattr(module, "padded_weight", None)
-    if w is None:
+    """(weight, bias) the float deploy forward of `module` runs: the conv's,
+    zero-padded where the module pads."""
+    pad = padding(module)
+    if pad is None:
         return conv.weight, conv.bias
-    return w, module.padded_bias
+    cin, cout = pad
+    return _pad_oihw(conv.weight, cin, cout), F.pad(conv.bias, (0, cout - conv.out_channels))
 
 
 def serve_q_params(module: nn.Module) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(q_kernel, q_wscale, q_bias) the int8 forward of `module` runs: the
-    padded ones where built, else its own."""
-    q = getattr(module, "padded_q_kernel", None)
-    if q is None:
-        return module.q_kernel, module.q_wscale, module.q_bias
-    return q, module.padded_q_wscale, module.padded_q_bias
-
+    """(q_kernel, q_wscale, q_bias) the int8 forward of `module` runs: its
+    own, zero-padded where the module pads (a padded row's scale is 1)."""
+    q, scale, bias = module.q_kernel, module.q_wscale, module.q_bias
+    pad = padding(module)
+    if pad is None:
+        return q, scale, bias
+    cin, cout = pad
+    rows = cout - q.shape[0]
+    return _pad_oihw(q, cin, cout), F.pad(scale, (0, rows), value=1.0), F.pad(bias, (0, rows))

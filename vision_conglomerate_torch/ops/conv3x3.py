@@ -26,7 +26,8 @@ producer (nn/channel_pad.py).
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises. `conv3x3_bias_act.launches` counts launches,
-`conv3x3_bias_act.element_launches` those of them on the element path.
+`conv3x3_bias_act.element_launches` those of them on the element path, by
+the library's own rule (`conv3x3_bias_act_vector`).
 """
 import ctypes
 from typing import Optional
@@ -66,16 +67,6 @@ def check_conv_args(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     check_launch_args(x, w, b, activation, (n * h * w_dim + 127, 9 * cin * w.shape[3]))
 
 
-def element_path(x: torch.Tensor, wk: torch.Tensor, values: int = 8) -> bool:
-    """True where a launch on NHWC x and the (Cout, 3, 3, Cin) weight wk
-    takes the kernel's synchronous element path: Cin not a multiple of
-    `values` (those in 16 bytes: 8 bf16, 16 int8) or x or wk not 16-byte
-    aligned. The rule of csrc/igemm_sm90.cuh:vector_path, which the
-    libraries export as `<name>_vector` (chip_smoke.py holds the two
-    equal)."""
-    return bool(x.shape[-1] % values or x.data_ptr() % 16 or wk.data_ptr() % 16)
-
-
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             activation: Optional[str]) -> torch.Tensor:
     check_conv_args(x, w, b, activation)
@@ -95,7 +86,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(lib, "conv3x3_bias_act", code)
     conv3x3_bias_act.launches += 1
-    conv3x3_bias_act.element_launches += element_path(x, wk)
+    conv3x3_bias_act.element_launches += not lib.conv3x3_bias_act_vector(
+        x.data_ptr(), wk.data_ptr(), cin)
     return y
 
 

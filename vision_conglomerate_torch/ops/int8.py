@@ -41,7 +41,8 @@ The kernels store bf16 only, so on the card the module dtype is bf16.
 kernel launches (the im2col convs' included); `conv_s8_bias_act.calls`
 counts the im2col route's calls on the card, and
 `conv3x3_s8_bias_act.element_launches` the s8 conv launches on the
-kernel's synchronous element path (Cin not a multiple of 16), which no
+kernel's synchronous element path (Cin not a multiple of 16; the
+library's rule, `conv3x3_s8_bias_act_vector`), which no
 serve path takes: the serve form pads such channel counts at their
 producer (nn/channel_pad.py), and the quantize pass writes the padded map.
 """
@@ -52,7 +53,6 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .conv3x3 import element_path
 from .fused_matmul import ACTIVATIONS, apply_activation
 
 _MATMUL_ARGTYPES = {"matmul_s8_bias_act_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -204,7 +204,8 @@ def _launch_conv(x_q, w_q, scale, bias, activation, out_dtype):
             torch.cuda.current_stream().cuda_stream)
     _cuda.check(lib, "conv3x3_s8_bias_act", code)
     conv3x3_s8_bias_act.launches += 1
-    conv3x3_s8_bias_act.element_launches += element_path(x_q, wk, 16)
+    conv3x3_s8_bias_act.element_launches += not lib.conv3x3_s8_bias_act_vector(
+        x_q.data_ptr(), wk.data_ptr(), cin)
     return y
 
 
