@@ -1,0 +1,7 @@
+"""ddp.cudnn_conv_ms: train.cudnn_conv_ms, read in the data-parallel cell, where it moves
+ddp_train_img_per_s (rank 0's trace and spans)."""
+from benchmark.harness.spec import load_module
+
+
+def read(ctx):
+    return load_module("metrics", "train.cudnn_conv_ms", ctx.cell.root).read(ctx)
