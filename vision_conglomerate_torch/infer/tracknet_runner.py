@@ -49,6 +49,7 @@ from ..nn.reparam import deploy_transform
 from ..ops.heatmap import decode_heatmap_peaks, hough_decode
 from ..train.checkpoint import load_checkpoint
 from ..utils.image import load_and_process_img
+from ..utils.profiling import span
 from ..weights import flax_to_state_dict
 from .runner import (Device, _open_video_writer, _prefetch_batches, check_quantize,
                      quantize_model_int8)
@@ -98,16 +99,19 @@ def track_batch(model: TrackNet, frames, og_hw: Tuple[int, int], threshold: int 
                 decode: str = "centroid", hough_grad_config=None) -> np.ndarray:
     """(B, 3) tracks [x, y, r] in og_hw pixels of a batch of stacked NHWC
     frames (numpy, or a tensor already on the model's device), NaN where
-    no ball was found."""
-    dev = next(model.parameters()).device
-    x = torch.as_tensor(frames, device=dev).permute(0, 3, 1, 2)
-    heatmaps = model(x, inference=True, og_size=og_hw)
-    if decode == "hough":
-        return hough_decode(heatmaps.cpu().numpy(), threshold, hough_grad_config)
-    cx, cy, r, found = decode_heatmap_peaks(heatmaps, threshold=threshold)
-    tracks = torch.stack([cx, cy, r], dim=1).double().cpu().numpy()
-    tracks[~found.cpu().numpy()] = np.nan
-    return tracks
+    no ball was found. Spans: `serve.batch` over the call, `serve.decode`
+    from the heatmaps to the tracks on the host."""
+    with span("serve.batch"):
+        dev = next(model.parameters()).device
+        x = torch.as_tensor(frames, device=dev).permute(0, 3, 1, 2)
+        heatmaps = model(x, inference=True, og_size=og_hw)
+        with span("serve.decode"):
+            if decode == "hough":
+                return hough_decode(heatmaps.cpu().numpy(), threshold, hough_grad_config)
+            cx, cy, r, found = decode_heatmap_peaks(heatmaps, threshold=threshold)
+            tracks = torch.stack([cx, cy, r], dim=1).double().cpu().numpy()
+            tracks[~found.cpu().numpy()] = np.nan
+            return tracks
 
 
 def fill_gaps(tracks: np.ndarray) -> np.ndarray:

@@ -52,6 +52,7 @@ from .. import registry
 from ..nn import channel_pad
 from ..nn.blocks import ConvBNorm, stage
 from ..ops.resize import resize_nchw
+from ..utils.profiling import span
 
 ENCODER_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512)
 DECODER_WIDTHS = (256, 256, 256, 126, 128, 64, 64)
@@ -247,7 +248,11 @@ class TrackNet(nn.Module):
                 og_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         stem = getattr(self.encoder, "enc_0", None)  # the base encoder's first conv
         cin = x.shape[1] if stem is None else channel_pad.in_channels(stem, x.shape[1])
-        y = self.decoder(self.encoder(channel_pad.widen(x, cin, self.dtype)))
+        with span("tracknet.encoder"):
+            fmaps = self.encoder(channel_pad.widen(x, cin, self.dtype))
+        with span("tracknet.decoder"):
+            y = self.decoder(fmaps)
         if inference:
-            return heatmap_from_logits(y, og_size)
+            with span("tracknet.heatmap"):
+                return heatmap_from_logits(y, og_size)
         return y

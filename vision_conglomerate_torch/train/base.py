@@ -24,6 +24,7 @@ import torch
 from ..parallel.mesh import (all_reduce_sum_, batchnorm_statistics, is_distributed,
                              process_is_primary, world_size)
 from ..utils.plots import save_metric_plots
+from ..utils.profiling import span
 from ..utils.yaml_io import load_yaml, save_yaml
 from .checkpoint import load_checkpoint as _load_ckpt
 from .checkpoint import save_checkpoint as _save_ckpt
@@ -110,18 +111,20 @@ class BasePipeline:
         parallelism: the gradients and the BatchNorm running statistics
         averaged over the ranks (pmean of grads and of the new batch_stats
         in the JAX per-shard step) in one all-reduce, and the step's metrics
-        averaged (sum-type ones summed) in another. Without a process group
-        the metrics come back as they are."""
+        averaged (sum-type ones summed) in another, in the span
+        `train.sync`. Without a process group the metrics come back as they
+        are."""
         if not is_distributed():
             return metrics
-        n = world_size()
-        all_reduce_sum_([p.grad for g in self.optimizer.param_groups for p in g["params"]
-                         if p.grad is not None] + batchnorm_statistics(self.model), 1.0 / n)
-        sums = self._sum_metrics()
-        vec = torch.stack([v.detach().float() / (1 if k in sums else n)
-                           for k, v in metrics.items()])
-        all_reduce_sum_([vec])
-        return dict(zip(metrics, vec.unbind()))
+        with span("train.sync"):
+            n = world_size()
+            all_reduce_sum_([p.grad for g in self.optimizer.param_groups for p in g["params"]
+                             if p.grad is not None] + batchnorm_statistics(self.model), 1.0 / n)
+            sums = self._sum_metrics()
+            vec = torch.stack([v.detach().float() / (1 if k in sums else n)
+                               for k, v in metrics.items()])
+            all_reduce_sum_([vec])
+            return dict(zip(metrics, vec.unbind()))
 
     def _sync_eval_step(self, metrics: Dict[str, torch.Tensor],
                         n_valid: int) -> Dict[str, torch.Tensor]:

@@ -42,7 +42,7 @@ from ..nn.initializers import INIT_SCHEMES
 from ..ops.heatmap import decode_heatmap_peaks, hough_decode
 from ..ops.preprocess import normalize_images
 from ..parallel.mesh import all_gather_rows, broadcast_module_, process_is_primary, world_size
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from ..weights import flax_to_state_dict, state_dict_to_flax
 from .base import BasePipeline
 from .checkpoint import to_torch
@@ -168,14 +168,22 @@ class TrainTrackNetPipeline(BasePipeline):
         return x.permute(0, 3, 1, 2)
 
     def train_step(self, frames: torch.Tensor, heatmaps: torch.Tensor) -> torch.Tensor:
-        """One optimizer step; returns the loss on the device."""
-        logits = self.model(self._inputs(frames))
-        loss = tracknet_logits_loss(logits, heatmaps).mean()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = self._sync_train_step({"loss": loss.detach()})["loss"]
-        self.optimizer.step()
-        return loss
+        """One optimizer step; returns the loss on the device. Spans:
+        `train.step` over the call, `train.forward`, `train.loss`,
+        `train.backward` and `train.optimizer` (`train.sync` between the
+        last two, under data parallelism)."""
+        with span("train.step"):
+            with span("train.forward"):
+                logits = self.model(self._inputs(frames))
+            with span("train.loss"):
+                loss = tracknet_logits_loss(logits, heatmaps).mean()
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            loss = self._sync_train_step({"loss": loss.detach()})["loss"]
+            with span("train.optimizer"):
+                self.optimizer.step()
+            return loss
 
     @torch.no_grad()
     def eval_step(self, frames: torch.Tensor, heatmaps: torch.Tensor,

@@ -18,7 +18,9 @@ CosineAnnealingWarmRestarts with --lr_schedule). `model_config.remat`, on
 by default at batch >= 32, recomputes each conv in the backward pass.
 `--use_ddp` trains data-parallel under torchrun, as `train_det` does: the
 global batch, the lr scaled by the number of ranks (the JAX CLI's device
-count), writes on rank 0.
+count), writes on rank 0. `--profile_dir` writes a torch.profiler trace of
+the first epoch there (`utils.profiling.trace`), the train step's spans in
+it.
 """
 import argparse
 import logging
@@ -119,6 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config_path", type=str, default="configs/tracknet/config.yaml", metavar="", help="Config YAML path")
     parser.add_argument("--lr", type=float, default=0.0, metavar="", help="Override optimizer_config.lr (still scaled by device count); 0 = use config")
     parser.add_argument("--cache_data", action="store_true", help="Cache decoded frame windows in host RAM after the first epoch")
+    parser.add_argument("--profile_dir", type=str, default="", metavar="", help="Write a torch.profiler trace of the first epoch here, with the port's spans")
     parser.add_argument("--device", type=str, default="cuda", metavar="", help="device to train on (cuda or cpu)")
     return parser
 
