@@ -4,6 +4,7 @@ at the model's own channels (a channel-padded launch counts the model's
 work): 2 * 9 * Cin * Cout MACs a pixel; x, w and y read or written once,
 the f32 bias once."""
 KERNEL = "conv3x3"
+PEAK = "BF16_FLOPS"
 BYTES = 2
 
 

@@ -1,6 +1,8 @@
 """A kernel's share of its roofline over a traced window: the sum of each
-launch's bound, the larger of its operations over the bf16 peak and its
-bytes over the HBM peak, over the sum of its launches' device time."""
+launch's bound, the larger of its operations over the peak its counts name
+(`PEAK` in benchmark/counts/<kernel>.py, a name in harness/peaks.py) and
+its bytes over the HBM peak, over the
+sum of its launches' device time."""
 import re
 
 
@@ -13,6 +15,7 @@ def share(ctx, counts, pattern: str):
     if not durations or not per_step or len(durations) != len(per_step) * ctx.steps:
         return None
     pk = ctx.peaks
-    bound = sum(max(counts.ops(r) / pk.BF16_FLOPS, counts.bytes_moved(r) / pk.HBM_BYTES)
+    peak = getattr(pk, counts.PEAK)
+    bound = sum(max(counts.ops(r) / peak, counts.bytes_moved(r) / pk.HBM_BYTES)
                 for r in per_step) * ctx.steps
     return 100.0 * bound / sum(durations)

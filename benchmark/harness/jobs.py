@@ -2,9 +2,9 @@
 readings.
 
 A task module (`benchmark/harness/tasks/<task>.py`, named by a
-configuration's `task`) gives `make_job(mode, cell, seed, device, **opts)`
-for each traffic `mode` it serves ("serve" or "train"), returning an
-object with:
+configuration's `task`) gives `calibration(cell)` (harness/tasks/__init__.py)
+and `make_job(mode, cell, seed, device, **opts)` for each traffic `mode` it
+serves ("serve" or "train"), returning an object with:
 - `items_per_step`: images a step completes (on this rank);
 - `step(i)`: one call of the timed path; a serve step returns when its
   results are on the host, a train step when it is enqueued;

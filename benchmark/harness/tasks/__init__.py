@@ -1,13 +1,25 @@
-"""The drivers of the timed path, one module per configuration `task`."""
+"""The drivers of the timed path, one module per configuration `task`
+(`benchmark/harness/tasks/<task>.py`), found by the task's name. A task
+module gives `make_job(mode, cell, seed, device, **opts)` (harness/jobs.py
+says what a job is) and `calibration(cell)`, what benchmark/calibrate.py
+reads for a cell of the task: its control, witness and faults."""
 import importlib
 from collections import deque
+from types import ModuleType
 
 import torch
 
 
+def task_module(cell) -> ModuleType:
+    return importlib.import_module(f"{__name__}.{cell.config['task']}")
+
+
 def make_job(cell, seed: int, device, **opts):
-    module = importlib.import_module(f"{__name__}.{cell.config['task']}")
-    return module.make_job(cell.traffic["mode"], cell, seed, device, **opts)
+    return task_module(cell).make_job(cell.traffic["mode"], cell, seed, device, **opts)
+
+
+def calibration(cell):
+    return task_module(cell).calibration(cell)
 
 
 def stop_agreement(device):

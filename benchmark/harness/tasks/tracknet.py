@@ -6,9 +6,12 @@ weights cast to the compute dtype, channel padding in the forward), and
 each step is `infer.tracknet_runner.track_batch(model, frames, og_hw)`
 with the centroid decode: the per-batch call of `run_tracknet_inference`.
 The frame stacks are float32 NHWC, as the runner stages them, made from
-the seed as a ring of batches already on the device. `control="int8"`
-serves the port's int8 form, calibrated on the first batch as the runner
-does.
+the seed as a ring of batches already on the device. The traffic's
+`form` says what is served: "bf16" (the default) or "int8", the port's
+int8 form (`infer.runner.quantize_model_int8`, calibrated on the ring's
+first batch, as `run_tracknet_inference --quantize int8` calibrates on
+its first), judged against the int8 scheme written out in plain PyTorch
+(reference/int8.py).
 
 train: `train.tracknet_trainer.TrainTrackNetPipeline.train_step` on a
 ring of uint8 frame stacks and heatmaps made from the seed, the
@@ -19,12 +22,17 @@ Over several ranks the process group is the port's
 `shard_batch` of each global batch, and `_sync_train_step` all-reduces the
 gradients. Set-up takes the first steps through the same call; the
 reference follows the first three.
+
+`calibration(cell)` names what benchmark/calibrate.py reads for a cell of
+this task: its control, its witness and its faults.
 """
 import math
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
+from ...reference.int8 import Int8Net, mark_routes
+from ...reference.layers import bf16_convs
 from ...reference.tracknet import TrackNetBase, centroid_tracks, heatmap
 from ...reference.train import first_steps
 from .. import seeded
@@ -46,22 +54,52 @@ def _reference(config, seed: int, device, state=None) -> TrackNetBase:
     return ref
 
 
-def serve_state(config, seed: int, device, calib: int):
+def serve_state(config, seed: int, device, calib: int, int8: bool = False):
     """(state, conv records at batch `calib`): seeded weights with running
     statistics from `calib` seeded frame stacks (seeded.calibrate_batchnorm),
-    the same for both sides."""
+    the same for both sides; `int8`: the records name the int8 form's
+    kernels (reference/int8.mark_routes)."""
     h, w, cin = _dims(config)
     x = seeded.frames_f32((calib, h, w, cin), seed, device, seeded.CALIBRATION)
-    return seeded.calibrate_batchnorm(_reference(config, seed, device),
+    ref = _reference(config, seed, device)
+    return seeded.calibrate_batchnorm(mark_routes(ref) if int8 else ref,
                                       x.permute(0, 3, 1, 2).contiguous())
 
 
-def _records(config, batch: int) -> List[tuple]:
+def _records(config, batch: int, int8: bool = False) -> List[tuple]:
+    """Conv records of one forward at `batch`; `int8`: with the int8
+    form's kernels named (reference/int8.mark_routes)."""
     h, w, cin = _dims(config)
     with torch.device("meta"):
         ref = TrackNetBase(config["model_config"], cin)
         x = torch.empty(batch, cin, h, w)
+    if int8:
+        mark_routes(ref)
     return forward_records(ref.eval(), [x])
+
+
+SERVE_FORMS = ("bf16", "int8")
+SERVE_FAULTS = ("half_batch", "stale", "altered")
+# the int8 form's control: every activation scale times 4, 6-bit
+# activations on the same s8 kernels (PERF.md gives its readings)
+INT8_CONTROL_FACTOR = 4
+INT8_CONTROL = f"int8_x{INT8_CONTROL_FACTOR}"
+
+
+def serve_form(traffic) -> str:
+    form = traffic.get("form", "bf16")
+    if form not in SERVE_FORMS:
+        raise ValueError(f"serve form {form!r} is not one of {SERVE_FORMS}")
+    return form
+
+
+def coarsen_activations(model: torch.nn.Module, factor: float) -> None:
+    """Multiply the activation scale of every int8 conv of the port's
+    model by `factor` (the control of the int8 form)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "q_xscale"):
+                m.q_xscale.mul_(factor)
 
 
 class Serve:
@@ -80,10 +118,14 @@ class Serve:
         h, w, cin = _dims(cell.config)
         mc = cell.config["model_config"]
         self.threshold = int(cell.config["train_config"].get("heatmap_threshold", 128))
+        self.form = serve_form(t)
+        if control not in (None, "int8" if self.form == "bf16" else INT8_CONTROL):
+            raise ValueError(f"no control {control!r} for the {self.form} form")
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        self.dtype = dtype
         clock.lap("import")
         self.state, records = serve_state(cell.config, seed, device,
-                                          int(t["calibration_rows"]))
+                                          int(t["calibration_rows"]), self.form == "int8")
         clock.lap("weights_and_calibration")
         state = self.state
         model = TrackNet(mc, in_channels=cin, folded=True, dtype=dtype, device=device)
@@ -93,9 +135,11 @@ class Serve:
         clock.lap("fold")
         self.frames = seeded.frames_f32((self.ring, self.batch, h, w, cin), seed, device)
         clock.lap("inputs")
-        if control == "int8":
+        if self.form == "int8" or control == "int8":
             quantize_model_int8(model, self.frames[0].permute(0, 3, 1, 2), inference=True,
                                 og_size=self.og_hw)
+            if control == INT8_CONTROL:
+                coarsen_activations(model, INT8_CONTROL_FACTOR)
         else:
             cast_conv_weights(model, dtype)
         self.model = model.eval()
@@ -164,23 +208,28 @@ class Serve:
 
     def check(self, witness: bool = False) -> Dict[str, float]:
         """The numbers; `witness` judges the reference computed in bf16 in the
-        program's place instead (its classes and the tracks they decode to)."""
+        program's place instead (its classes and the tracks they decode to).
+        The int8 form is judged against the int8 reference; its gap against
+        the float32 reference is a note (`heatmap_gap_f32`)."""
         ref = _reference(self.cell.config, self.seed, self.device, self.state).eval()
-        if witness:
-            low = _reference(self.cell.config, self.seed, self.device, self.state)
-            low = low.to(torch.bfloat16).eval()
-            with torch.no_grad():
+        judge = ref
+        if self.form == "int8":
+            judge = Int8Net(ref, self.frames[0].permute(0, 3, 1, 2), self.dtype)
+        if witness:  # the convs in bf16, each BatchNorm and ReLU in f32 on their output
+            with torch.no_grad(), bf16_convs():
                 for s, r in self.samples:
                     x = self.frames[s % self.ring][r:r + 1].permute(0, 3, 1, 2)
-                    cls = low(x.to(torch.bfloat16))[0].argmax(dim=0).to(torch.uint8)
+                    cls = ref(x)[0].argmax(dim=0).to(torch.uint8)
                     self.served[(s, r)] = cls
                     hm = heatmap(cls[None], self.og_hw)
                     self.tracks[(s, r)] = centroid_tracks(hm.cpu(), self.threshold)[0]
-        logits, served, ref_tracks, tracks = [], [], [], []
+        logits, f32_logits, served, ref_tracks, tracks = [], [], [], [], []
         with torch.no_grad():
             for s, r in self.samples:
                 x = self.frames[s % self.ring][r:r + 1].permute(0, 3, 1, 2).float()
-                logits.append(ref(x)[0])
+                logits.append(judge(x)[0])
+                if judge is not ref:
+                    f32_logits.append(ref(x)[0])
                 cls = self.served.get((s, r))
                 served.append(cls)
                 tracks.append(self.tracks.get((s, r)))
@@ -191,7 +240,10 @@ class Serve:
                     ref_tracks.append(torch.full((3,), math.nan))
         self.track_gap_px = track_gap(tracks, ref_tracks)
         gap = heatmap_numbers(logits, served)
-        return {"heatmap_gap": gap if self.track_gap_px <= TRACK_TOL_PX else math.inf}
+        numbers = {"heatmap_gap": gap if self.track_gap_px <= TRACK_TOL_PX else math.inf}
+        if f32_logits:
+            numbers["heatmap_gap_f32"] = heatmap_numbers(f32_logits, served)
+        return numbers
 
 
 class Train:
@@ -311,3 +363,35 @@ class Train:
 
 def make_job(mode: str, cell, seed: int, device, **opts):
     return {"serve": Serve, "train": Train}[mode](cell, seed, device, **opts)
+
+
+def calibration(cell) -> Dict[str, List[tuple]]:
+    """What benchmark/calibrate.py reads for a cell: {"control" | "witness"
+    | "faults": [(kind, how), ...]}, where `how` is either the options of
+    a run of the program (harness/main.run_job) with the control or the
+    fault planted in it, or a function (seed, device) -> numbers that puts
+    the reference in the program's place.
+
+    serve: the bf16 form's control is the port's own int8 form; the int8
+    form's, the int8 form with every activation scale times 4
+    (INT8_CONTROL); the witness is the reference computed in bf16 in the
+    program's place; the faults are planted in the program (SERVE_FAULTS).
+    train: the control is the reference in float8 training, the witness
+    the reference in bf16, the faults planted in the reference: half the
+    batch, and over several chips the exchange left out. A state left
+    unchanged reads 1 and needs no run."""
+    if cell.traffic["mode"] == "serve":
+        control = "int8" if serve_form(cell.traffic) == "bf16" else INT8_CONTROL
+        return {"control": [(f"control_{control}", {"control": control})],
+                "witness": [("witness_bf16_reference", {"witness": True})],
+                "faults": [(f"fault_{f}", {"fault": f}) for f in SERVE_FAULTS]}
+    shards = cell.chips
+
+    def numbers(**kw: Any):
+        return lambda seed, device: Train.control_numbers(cell, seed, device, shards=shards,
+                                                          **kw)
+
+    faults = ("half_batch", "no_exchange") if shards > 1 else ("half_batch",)
+    return {"control": [("control_fp8", numbers())],
+            "witness": [("witness_bf16_reference", numbers(bf16=True))],
+            "faults": [(f"fault_{f}", numbers(fault=f)) for f in faults]}

@@ -2,7 +2,7 @@
 import pytest
 import torch
 
-from benchmark.counts import conv3x3, model, roofline
+from benchmark.counts import conv3x3, conv3x3_s8, model, roofline
 from benchmark.harness import peaks
 from benchmark.harness.layer_context import LayerContext
 from benchmark.harness.spec import load_cell
@@ -28,6 +28,37 @@ def rec(b, h, w, cin, cout, k=3, s=1, routed="conv3x3"):
 def test_conv3x3_counts(r, ops, nbytes):
     assert conv3x3.ops(r) == ops
     assert conv3x3.bytes_moved(r) == nbytes
+
+
+@pytest.mark.parametrize("r, ops, nbytes", [
+    # TrackNet enc_1 in int8 at batch 32: s8 x and w, bf16 y, f32 bias and scales
+    (rec(32, 352, 640, 64, 64, routed="conv3x3_s8"), 2 * 32 * 352 * 640 * 64 * 64 * 9,
+     32 * 352 * 640 * 64 + 9 * 64 * 64 + 2 * 32 * 352 * 640 * 64 + 4 * 64 + 4 * 64),
+    # dec_8 in int8, served 128 -> 128: the model's 126 -> 128 at 176x320
+    (rec(32, 176, 320, 126, 128, routed="conv3x3_s8"), 2 * 32 * 176 * 320 * 126 * 128 * 9,
+     32 * 176 * 320 * 126 + 9 * 126 * 128 + 2 * 32 * 176 * 320 * 128 + 4 * 128 + 4 * 128),
+])
+def test_conv3x3_s8_counts(r, ops, nbytes):
+    assert conv3x3_s8.ops(r) == ops
+    assert conv3x3_s8.bytes_moved(r) == nbytes
+    assert conv3x3_s8.launches([r, rec(32, 352, 640, 64, 256)]) == [r]
+
+
+def test_tracknet_int8_forward_counts_and_roofline():
+    """17 s8 launches a batch (dec_13 stays bf16), bounded by the int8 peak."""
+    cell = load_cell("tracknet_base.serve_int8_b32")
+    records = tracknet._records(cell.config, 32, int8=True)
+    s8 = conv3x3_s8.launches(records)
+    assert len(s8) == 17 and conv3x3.launches(records) == [rec(32, 352, 640, 64, 256)]
+    bound = sum(max(conv3x3_s8.ops(r) / 1979e12, conv3x3_s8.bytes_moved(r) / 3.35e12)
+                for r in s8)
+    assert bound == pytest.approx(6.1108e-3, rel=1e-3)  # PERF.md's TrackNet base s8 bound
+    name = "void igemm::bias_act_kernel<signed char, 9, 128, 64, 8>(igemm::Params<signed char>)"
+    ops = [(name, 0.0, 1e-3)] * 17 * 2 + [("other", 0.0, 5.0)]
+    ctx = LayerContext(cell=cell, mode="serve", steps=2, trace=TraceSummary(1.0, 0.5, ops),
+                       spans={}, records=records)
+    got = roofline.share(ctx, conv3x3_s8, conv3x3_s8.PATTERN)
+    assert got == pytest.approx(100 * 2 * bound / (34 * 1e-3))
 
 
 def test_tracknet_forward_counts():

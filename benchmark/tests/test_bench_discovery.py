@@ -1,8 +1,12 @@
-"""A cell, configuration, traffic mix, limits and metric added as files are
-found by name, with no edit to any file of the harness."""
+"""A cell, configuration, traffic mix, limits, metric and task added as
+files are found by name, with no edit to any file of the harness."""
+import hashlib
+import importlib
 import json
 import os
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -22,7 +26,8 @@ def test_every_cell_of_the_benchmark_loads():
     spec = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
     for w in spec["workloads"]:
         cell = load_cell(w["name"])
-        assert cell.config["task"] == "tracknet"
+        task = importlib.import_module(f"benchmark.harness.tasks.{cell.config['task']}")
+        assert callable(task.make_job) and callable(task.calibration)
         assert cell.limits and cell.end_to_end and cell.per_layer
         names = {m["name"] for m in cell.end_to_end}
         assert "setup_s" in names and len(names) >= 2
@@ -114,3 +119,105 @@ def test_metric_without_workloads_goes_to_every_cell_reporting_what_it_moves(tmp
     serve = load_cell("tracknet_base.serve_b32", root=str(root))
     assert "device.idle.train" in {m["name"] for m in train.per_layer}
     assert "device.idle.train" not in {m["name"] for m in serve.per_layer}
+
+
+TOY_TASK = """
+import math
+
+
+class Job:
+    items_per_step, records = 2, []
+
+    def __init__(self, cell, seed, device, control=None, fault=None):
+        self.off = {None: 0.0, "coarse": 5.0}[control] + (10.0 if fault else 0.0)
+
+    def step(self, i):
+        pass
+
+    def spans(self, on):
+        pass
+
+    def span_ms(self):
+        return {}
+
+    def release(self):
+        pass
+
+    def check(self, witness=False):
+        return {"toy_gap": self.off + (0.5 if witness else 0.1)}
+
+
+def make_job(mode, cell, seed, device, **opts):
+    return Job(cell, seed, device, **opts)
+
+
+def calibration(cell):
+    return {"control": [("control_coarse", {"control": "coarse"})],
+            "witness": [("witness_toy", {"witness": True})],
+            "faults": [("fault_lost", {"fault": "lost"}),
+                       ("fault_reference", lambda seed, device: {"toy_gap": float(seed)})]}
+"""
+
+PROBE = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+from benchmark import calibrate
+from benchmark.harness.main import end_to_end
+from benchmark.harness.spec import load_cell
+cell = load_cell("toy_net.serve_b2")
+res = {"setup_s": 1.0, "window_s": 2.0, "items": 8, "peak_bytes": 0, "latencies_ms": [1.0]}
+steps = calibrate.plan(cell, ["program", "control", "witness", "faults"])
+out = {"task": cell.config["task"], "end_to_end": sorted(end_to_end(cell, res)),
+       "readings": [[kind, calibrate.read(cell, 7, how, torch.device("cpu"), 0.01)["numbers"]]
+                    for kind, how in steps]}
+print(json.dumps(out))
+"""
+
+
+def _digests(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            out[os.path.relpath(path, root)] = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    return out
+
+
+def test_a_configuration_of_a_new_task_is_added_as_new_files_alone(tmp_path):
+    """A throwaway task, its configuration, traffic, limits and cell, added
+    as new files in a copy of the benchmark (and entries in BENCHMARK.json):
+    the cell loads, reports the end-to-end metrics whose lists name it, and
+    calibrate.py's dispatch reads the task's own control, witness and faults;
+    no file that was there changes."""
+    root = _copy_bench(tmp_path)
+    bench = root / "benchmark"
+    before = _digests(bench)
+    (bench / "harness" / "tasks" / "toy_task.py").write_text(TOY_TASK)
+    (bench / "configs" / "toy_net.yaml").write_text("task: toy_task\nreduced: []\n")
+    (bench / "traffic" / "serve_b2.json").write_text(json.dumps({"mode": "serve", "batch": 2}))
+    (bench / "limits" / "toy_net.serve_b2.json").write_text(json.dumps({"toy_gap": 1.0}))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "toy_net", "source": "https://example.org/toy",
+                            "file": "benchmark/configs/toy_net.yaml", "reduced": [],
+                            "why": "toy"})
+    spec["workloads"].append({"name": "toy_net.serve_b2", "config": "toy_net",
+                              "traffic": "serve_b2", "chips": 1, "why": "toy"})
+    for m in spec["end_to_end"]:
+        if m["name"] == "serve_img_per_s":
+            m["workloads"].append("toy_net.serve_b2")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["task"] == "toy_task"
+    assert got["end_to_end"] == ["peak_mem_gib", "serve_img_per_s", "setup_s"]
+    assert got["readings"] == [["program", {"toy_gap": 0.1}],
+                               ["control_coarse", {"toy_gap": 5.1}],
+                               ["witness_toy", {"toy_gap": 0.5}],
+                               ["fault_lost", {"toy_gap": 10.1}],
+                               ["fault_reference", {"toy_gap": 7.0}]]
+    after = _digests(bench)
+    assert {k: after[k] for k in before} == before
